@@ -9,22 +9,29 @@ exits non-zero:
 1. environment: torch and CUDA versions, the card's name and power limit
    (fails without a CUDA device);
 2. build: compiles the kernels (``otter_tpu_torch/csrc/*.cu``) with nvcc;
-3. K1 parity: the Myers pool kernel equals its plain PyTorch version on the
-   card and the native C++ edit distance, exactly, over every n_words
-   bucket; then the time of both on a 64-word bucket of 65,536 pairs;
-4. K2 parity: the striped ends-free kernel equals its plain version and the
-   numpy ends-free DP, exactly; then the time of both;
-5. small main path: the port's ``assemble`` on the card gives the same SAM
-   and FASTA bytes as ``otter_tpu``'s host path (no JAX involved);
-6. full-size main path: HiFi tandem-repeat loci near the reference's
-   coverage cap (32 regions; and 4 regions with non-spanning reads and a
-   2.4 kb allele), run on the card and on an exact reference engine (native
-   C++ distances, host ends-free DP): byte-identical output, >= 99% of the
-   distance pairs through the kernels, every kernel launched.
+3. kernels: each kernel of the assemble path (K1 Myers pool, K2 striped
+   Myers, K3 / K4 banded Myers, K7 banded edit DP, K5 / K6 affine
+   traceback with all bits / with checkpoints)
+   equals its plain PyTorch version on the card, exactly, and agrees with
+   the package's host oracles (native C++ distances, the numpy ends-free DP,
+   the native affine cigar ladder); then the time of the kernel and of the
+   plain version on one workload of the shape the main path gives it;
+4. small main path: the port's ``assemble`` on the card writes the same SAM
+   and FASTA bytes as on an exact host engine (native C++ distances, host
+   ends-free DP, native affine ladder);
+5. full-size main path: cell hifi-tr-1.5k (32 HiFi tandem-repeat loci at
+   coverage 100, het alleles of 1.5 and 1.8 kb), with its rates; and a
+   route-coverage run (4 loci with non-spanning reads, a 2.4 kb allele and
+   reads with N bases; 2 loci with a 7.5 kb allele) that reaches every
+   kernel, checked for parity only.
+   Each runs on the card and on the host engine: byte-identical output.
+   Every kernel's launch count is zeroed before the card runs and read
+   after them; each must have launched.
 
 The line before the last is a JSON object with each kernel's launches in
-phase 6, its largest disagreement and its times; the last line is
-``{"ok": true, "device": {...}}``. Every input is made from a seed.
+phase 5, its largest disagreement with its plain version and its times; the
+last line is ``{"ok": true, "device": {...}}``. Every input is made from a
+seed; nothing is read from the network.
 """
 
 from __future__ import annotations
@@ -32,7 +39,6 @@ from __future__ import annotations
 import io
 import json
 import os
-import random
 import subprocess
 import sys
 import tempfile
@@ -41,49 +47,60 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(REPO, "tests"))
-
-K1_REPLACES = "otter_tpu/kernels/myers_pallas.py:146"
-K2_REPLACES = "otter_tpu/kernels/myers_striped.py:47"
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+# name -> (source, TPU kernel it replaces)
+KERNELS = {
+    "myers_pool": ("otter_tpu_torch/csrc/myers.cu",
+                   "otter_tpu/kernels/myers_pallas.py:146"),
+    "myers_striped": ("otter_tpu_torch/csrc/myers_striped.cu",
+                      "otter_tpu/kernels/myers_striped.py:47"),
+    "myers_banded": ("otter_tpu_torch/csrc/myers_banded.cu",
+                     "otter_tpu/kernels/myers_banded.py:176"),
+    "myers_banded_ef": ("otter_tpu_torch/csrc/myers_banded.cu",
+                        "otter_tpu/kernels/myers_banded.py:654"),
+    "edit_banded": ("otter_tpu_torch/csrc/edit_banded.cu",
+                    "otter_tpu/kernels/edit_pallas.py:227"),
+    "affine_tb": ("otter_tpu_torch/csrc/affine_tb.cu",
+                  "otter_tpu/kernels/affine_pallas.py:99"),
+    "affine_tb_ckpt": ("otter_tpu_torch/csrc/affine_tb.cu",
+                       "otter_tpu/kernels/affine_pallas.py:395"),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def synchronize(dev) -> None:
-    import torch
+def cuda_wrappers() -> dict:
+    """Kernel name -> the wrapper whose ``launches`` counts its launches."""
+    from otter_tpu_torch.kernels import affine_tb, edit_banded, myers_banded
+    from otter_tpu_torch.kernels import myers_pallas, myers_striped
 
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    return {"myers_pool": myers_pallas.myers_pool_cuda,
+            "myers_striped": myers_striped.myers_striped_cuda,
+            "myers_banded": myers_banded.myers_banded_cuda,
+            "myers_banded_ef": myers_banded.myers_banded_ef_cuda,
+            "edit_banded": edit_banded.edit_banded_cuda,
+            "affine_tb": affine_tb.affine_tb_cuda,
+            "affine_tb_ckpt": affine_tb.affine_tb_ckpt_cuda}
 
 
-def time_ms(fn, dev, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up:
-    CUDA events on the card, the host clock (after a sync) elsewhere."""
+def time_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
+    by CUDA events on the current stream."""
     import torch
 
     fn()
-    synchronize(dev)
-    if dev.type == "cuda":
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        t1.synchronize()
-        return t0.elapsed_time(t1) / reps
-    start = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
     for _ in range(reps):
         fn()
-    return (time.perf_counter() - start) * 1e3 / reps
-
-
-# ---------------------------------------------------------------------------
-# Random sequences (numpy, seeded)
-# ---------------------------------------------------------------------------
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 def rand_acgt(rs: np.random.Generator, n: int) -> str:
@@ -107,19 +124,26 @@ def mutate(rs: np.random.Generator, s: str, err: float) -> str:
     return out.tobytes().decode()
 
 
-def pool_inputs(dev, pairs):
-    """(pattern, text) pairs, pattern the shorter side -> the pool launch
-    inputs on ``dev`` plus the pairs' m and n."""
-    from otter_tpu_torch.kernels.myers_pallas import (int32_tensor,
-                                                      pack_pool, pool_width)
-    from otter_tpu_torch.kernels.myers_striped import dedup_oriented
+def with_n(rs: np.random.Generator, s: str, count: int) -> str:
+    chars = bytearray(s.encode())
+    for i in rs.integers(0, len(chars), count):
+        chars[i] = ord("N")
+    return chars.decode()
 
-    oriented = [(a, b) if len(a) <= len(b) else (b, a) for a, b in pairs]
-    seqs, ip, it = dedup_oriented(oriented)
-    m = np.array([len(p) for p, _t in oriented], dtype=np.int64)
-    n = np.array([len(t) for _p, t in oriented], dtype=np.int64)
-    pool = pack_pool(seqs, pool_width(64, int(n.max())))
-    return tuple(int32_tensor(a, dev) for a in (pool, ip, it, n, m)) + (m, n)
+
+def report(name, n, cells, kern, plain, ms, plain_ms, err) -> dict:
+    """Print one kernel's parity and time line; returns its JSON fields."""
+    rate = (f" ({cells / ms / 1e6:.2f} Gcells/s kernel, "
+            f"{cells / plain_ms / 1e6:.2f} Gcells/s plain)" if cells else "")
+    log(f"{name}: {n} items, kernel == plain: {kern}, max |diff| {err} "
+        f"(tolerance 0); oracle agreement: {plain}; time on the timing set: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{rate}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +151,7 @@ def pool_inputs(dev, pairs):
 # ---------------------------------------------------------------------------
 
 
-def phase_environment():
+def phase_environment() -> str:
     import torch
 
     log("== phase 1: environment")
@@ -147,7 +171,8 @@ def phase_environment():
     return card
 
 
-def phase_build():
+def phase_build() -> None:
+    from otter_tpu_torch import native
     from otter_tpu_torch.kernels import _build
 
     log("== phase 2: build")
@@ -159,329 +184,424 @@ def phase_build():
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    native.get_lib()
+    log(f"host library built in {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: K1
+# Phase 3: every kernel against its plain version
 # ---------------------------------------------------------------------------
 
 
-def k1_parity_pairs(rs, bucket_pairs: int, long_pairs: int, long_n: int):
-    """ACGT pairs over every n_words bucket: edge pattern lengths, equal
-    strings, 0-30% error, unrelated texts, and texts up to ``long_n``."""
+def pool_args(dev, pairs, tbs=None, tes=None):
+    """(pattern, text) pairs oriented pattern = shorter side (or as given,
+    with tb/te) -> the pool launch arguments on ``dev`` (pool, idx_pat,
+    idx_txt, nlen, minit, tb, te, n_words, text_len; the pool wide enough
+    for K1's 64 words too) and the pairs' DP cells."""
+    from otter_tpu_torch.kernels.myers_pallas import (int32_tensor,
+                                                      pack_pool, pool_width)
+    from otter_tpu_torch.kernels.myers_striped import (dedup_oriented,
+                                                       striped_n_words)
+
+    if tbs is None:
+        pairs = [(a, b) if len(a) <= len(b) else (b, a) for a, b in pairs]
+        tbs = tes = [0] * len(pairs)
+    seqs, ip, it = dedup_oriented(pairs)
+    m = [len(a) for a, _b in pairs]
+    n = [len(b) for _a, b in pairs]
+    nw = striped_n_words(max(m))
+    pool = pack_pool(seqs, pool_width(max(nw, 64), max(n)))
+    args = tuple(int32_tensor(x, dev) for x in (pool, ip, it, n, m, tbs, tes))
+    cells = float(sum(a * b for a, b in zip(m, n)))
+    return args + (nw, max(n)), cells
+
+
+def kernel_k1(dev, rs) -> dict:
+    from otter_tpu_torch.kernels import myers_pallas as K1
+    from otter_tpu_torch.kernels.edit_engine import _NW_THRESHOLDS
+    from otter_tpu_torch.native import edit_distance_batch
+
+    import torch
+
     pairs = []
-    edges = (1, 31, 32, 33, 63, 64, 65, 2047, 2048)
-    for m in edges:
+    for m in (1, 31, 32, 33, 63, 64, 65, 2047, 2048):
         s = rand_acgt(rs, m)
         pairs += [(s, s), (s, mutate(rs, s, 0.1) or "A"),
                   (s, rand_acgt(rs, m + int(rs.integers(0, 64))))]
     for lo, hi in ((1, 128), (129, 256), (257, 512), (513, 1024),
                    (1025, 2048)):
-        for _ in range(bucket_pairs):
+        for _ in range(1024):
             s = rand_acgt(rs, int(rs.integers(lo, hi + 1)))
-            kind = rs.random()
-            if kind < 0.6:
-                t = mutate(rs, s, float(rs.uniform(0.0, 0.3)))
-            elif kind < 0.7:
-                t = s
-            else:
-                t = rand_acgt(rs, len(s) + int(rs.integers(0, len(s) + 1)))
+            t = mutate(rs, s, float(rs.uniform(0.0, 0.3))) \
+                if rs.random() < 0.7 else \
+                rand_acgt(rs, len(s) + int(rs.integers(0, len(s) + 1)))
             pairs.append((s, t or "C"))
-    for _ in range(long_pairs):
+    for _ in range(32):  # short patterns in texts up to 32 kb
         s = rand_acgt(rs, int(rs.integers(1, 129)))
-        n = int(rs.integers(long_n // 2, long_n + 1))
-        cut = int(rs.integers(0, n - len(s) + 1))
-        t = rand_acgt(rs, cut) + s + rand_acgt(rs, n - cut - len(s))
-        pairs.append((s, t))
-    return pairs
-
-
-def run_k1_buckets(dev, pairs, fn):
-    """Route pairs to their n_words buckets as the engine does and run
-    ``fn`` (a K1 version) per bucket; returns (B,) int64 on the host."""
-    import torch
-
-    from otter_tpu_torch.kernels.edit_engine import _NW_THRESHOLDS
-
-    pool, ip, it, n_t, m_t, m, n = pool_inputs(dev, pairs)
-    out = np.zeros(len(pairs), dtype=np.int64)
+        pairs.append((s, rand_acgt(rs, int(rs.integers(16384, 32768)))))
+    (pool, ip, it, nl, ml, _tb, _te, _nw, _tl), _c = pool_args(dev, pairs)
+    m = ml.cpu().numpy()
+    kern = np.zeros(len(pairs), dtype=np.int64)
+    plain = np.zeros(len(pairs), dtype=np.int64)
     g = np.searchsorted(_NW_THRESHOLDS, m, side="left")
     for gi in np.unique(g):
-        sel = np.nonzero(g == gi)[0]
-        idx = torch.from_numpy(sel).to(dev)
-        res = fn(pool, ip[idx].contiguous(), it[idx].contiguous(),
-                 n_t[idx].contiguous(), m_t[idx].contiguous(),
-                 int(4 << gi), int(n[sel].max()))
-        out[sel] = res.cpu().numpy()
-    return out
-
-
-def phase_k1(dev, bucket_pairs=1024, long_pairs=32, long_n=32768,
-             timing_pairs=65536, timing_seqs=512):
-    from otter_tpu.native import edit_distance_batch
-    from otter_tpu_torch.kernels import myers_pallas as K1
-
-    log("== phase 3: K1 (myers_pool) parity and time")
-    rs = np.random.default_rng(3)
-    pairs = k1_parity_pairs(rs, bucket_pairs, long_pairs, long_n)
-    kern = run_k1_buckets(dev, pairs, K1.myers_pool)
-    plain = run_k1_buckets(dev, pairs, K1.myers_pool_torch)
+        sel = torch.from_numpy(np.nonzero(g == gi)[0]).to(dev)
+        a = (pool, ip[sel], it[sel], nl[sel], ml[sel], int(4 << gi),
+             int(nl[sel].max()))
+        kern[sel.cpu().numpy()] = K1.myers_pool(*a).cpu().numpy()
+        plain[sel.cpu().numpy()] = K1.myers_pool_torch(*a).cpu().numpy()
     native, _cells = edit_distance_batch(pairs, os.cpu_count() or 1)
-    err = int(max(np.abs(kern - plain).max(), np.abs(kern - native).max()))
-    log(f"K1 parity: {len(pairs)} pairs, kernel == plain: "
-        f"{np.array_equal(kern, plain)}, kernel == native: "
-        f"{np.array_equal(kern, native)}, max |diff| {err} (tolerance 0: "
-        f"integer distances)")
-    if err:
-        raise AssertionError("K1 disagrees with its plain version or the "
-                             "native oracle")
+    err = int(np.abs(kern - plain).max())
+    oracle = bool(np.array_equal(kern, native))
+    check(err == 0 and oracle, "K1 disagrees with its plain version or the "
+          "native distance")
 
-    # time: one 64-word bucket of all-vs-all-like pairs at 1.5-2 kb
+    # timing: one 64-word bucket of 65,536 pairs of 1.5-1.8 kb reads
     seqs = []
-    for _ in range(timing_seqs // 2):
+    for _ in range(256):
         s = rand_acgt(rs, int(rs.integers(1500, 1801)))
         seqs += [s, mutate(rs, s, 0.02)]
     seqs = [s for s in seqs if 1025 <= len(s) <= 2048]
     iu, ju = np.triu_indices(len(seqs), 1)
-    pick = rs.choice(len(iu), size=min(timing_pairs, len(iu)), replace=False)
-    tpairs = [(seqs[i], seqs[j]) for i, j in zip(iu[pick], ju[pick])]
-    pool, ip, it, n_t, m_t, m, n = pool_inputs(dev, tpairs)
-    text_len = int(n.max())
-    args = (pool, ip, it, n_t, m_t, 64, text_len)
-    cells = float((m * n).sum())
-    ms = time_ms(lambda: K1.myers_pool(*args), dev, reps=5)
-    plain_ms = time_ms(lambda: K1.myers_pool_torch(*args), dev, reps=1)
-    same = np.array_equal(K1.myers_pool(*args).cpu().numpy(),
-                          K1.myers_pool_torch(*args).cpu().numpy())
-    log(f"K1 time, {len(tpairs)} pairs, n_words 64, m {int(m.min())}-"
-        f"{int(m.max())}, n <= {text_len}, {cells:.4g} cells: "
-        f"kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} Gcells/s), "
-        f"plain {plain_ms:.3f} ms ({cells / plain_ms / 1e6:.2f} Gcells/s), "
-        f"equal {same}")
-    if not same:
-        raise AssertionError("K1 disagrees with its plain version (timing "
-                             "set)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    pick = rs.choice(len(iu), size=min(65536, len(iu)), replace=False)
+    (pool, ip, it, nl, ml, _tb, _te, _nw, tl), cells = pool_args(
+        dev, [(seqs[i], seqs[j]) for i, j in zip(iu[pick], ju[pick])])
+    a = (pool, ip, it, nl, ml, 64, tl)
+    ms = time_ms(lambda: K1.myers_pool(*a), 5)
+    plain_ms = time_ms(lambda: K1.myers_pool_torch(*a), 1)
+    check(bool(torch.equal(K1.myers_pool(*a), K1.myers_pool_torch(*a))),
+          "K1 disagrees with its plain version on the timing set")
+    return report("K1 myers_pool", len(pairs), cells, err == 0, oracle, ms,
+                  plain_ms, err)
 
 
-# ---------------------------------------------------------------------------
-# Phase 4: K2
-# ---------------------------------------------------------------------------
-
-
-def k2_parity_jobs(rs, n_jobs: int, n_long: int, long_m: int):
-    """One-sided ends-free jobs: pattern- and text-side frees, tb only, te
-    only, both, zero frees, an empty side, and multi-stripe patterns."""
+def one_sided_jobs(rs, n, lo, hi):
+    """Ends-free jobs with the frees on one side: text-side tb / te / both,
+    pattern-side (transposed), and no frees."""
     jobs = []
-    for k in range(n_jobs + n_long):
-        m = int(rs.integers(1, 300)) if k < n_jobs else \
-            int(rs.integers(1025, long_m + 1))
-        ld = int(rs.integers(0, m // 2 + 2))
-        p = rand_acgt(rs, m)
-        t = mutate(rs, p, float(rs.uniform(0, 0.1)))
+    for k in range(n):
+        p = rand_acgt(rs, int(rs.integers(lo, hi + 1)))
+        ld = int(rs.integers(0, min(len(p) // 2 + 2, 200)))
         cut = int(rs.integers(0, ld + 1))
-        t = rand_acgt(rs, cut) + t + rand_acgt(rs, ld - cut)
-        mode = k % 7
+        t = rand_acgt(rs, cut) + mutate(rs, p, float(rs.uniform(0, 0.1))) \
+            + rand_acgt(rs, ld - cut)
         jobs.append([(p, t, 0, 0, ld, 0), (p, t, 0, 0, 0, ld),
-                     (p, t, 0, 0, cut, ld - cut), (t, p, ld, 0, 0, 0),
-                     (t, p, 0, ld, 0, 0), (t, p, cut, ld - cut, 0, 0),
-                     (p, t, 0, 0, 0, 0)][mode])
-    jobs += [("", "ACGTAC", 0, 0, 2, 1), ("ACGTACGT", "", 3, 2, 0, 0)]
+                     (p, t, 0, 0, cut, ld - cut), (t, p, cut, ld - cut, 0, 0),
+                     (p, t, 0, 0, 0, 0)][k % 5])
     return jobs
 
 
-def oriented_inputs(dev, jobs):
-    """Ends-free jobs with non-empty sides and text-side frees only ->
-    (K2 launch arguments on ``dev``, DP cells)."""
-    from otter_tpu_torch.kernels.myers_striped import oriented_inputs as pack
+def text_side(jobs):
+    """Jobs oriented frees-on-the-text: (pairs, tb list, te list)."""
+    pairs, tbs, tes = [], [], []
+    for p, t, pb, pe, tb, te in jobs:
+        if pb or pe:
+            pairs.append((t, p))
+            tbs.append(pb)
+            tes.append(pe)
+        else:
+            pairs.append((p, t))
+            tbs.append(tb)
+            tes.append(te)
+    return pairs, tbs, tes
 
-    args = pack([j[:2] for j in jobs], [j[4] for j in jobs],
-                [j[5] for j in jobs], dev)
-    cells = float(sum(len(j[0]) * len(j[1]) for j in jobs))
-    return args, cells
 
+def kernel_k2(dev, rs) -> dict:
+    import torch
 
-def phase_k2(dev, n_jobs=400, n_long=12, long_m=4096, timing_jobs=16384):
-    from otter_tpu.ops.align_np import edit_distance_ends_free
     from otter_tpu_torch.kernels import myers_striped as K2
+    from otter_tpu_torch.ops.align_np import edit_distance_ends_free
 
-    log("== phase 4: K2 (myers_striped) parity and time")
-    rs = np.random.default_rng(4)
-    jobs = k2_parity_jobs(rs, n_jobs, n_long, long_m)
+    jobs = one_sided_jobs(rs, 400, 1, 300) + one_sided_jobs(rs, 12, 1025,
+                                                            4096)
     got = K2.myers_striped_ends_free(jobs, dev)
-    want = np.array([edit_distance_ends_free(*j) for j in jobs])
-    # kernel vs plain on the same tensors (text-side jobs, both non-empty)
-    text_side = [j for j in jobs if j[0] and j[1] and not (j[2] or j[3])]
-    args, _cells = oriented_inputs(dev, text_side)
-    kern = K2.myers_striped(*args).cpu().numpy()
-    plain = K2.myers_striped_torch(*args).cpu().numpy()
-    err = int(max(np.abs(got - want).max(), np.abs(kern - plain).max()))
-    log(f"K2 parity: {len(jobs)} jobs (patterns up to {long_m}), kernel == "
-        f"numpy ends-free DP: {np.array_equal(got, want)}; {len(text_side)} "
-        f"jobs kernel == plain: {np.array_equal(kern, plain)}; max |diff| "
-        f"{err} (tolerance 0: integer distances)")
-    if err:
-        raise AssertionError("K2 disagrees with its plain version or the "
-                             "numpy oracle")
+    oracle = bool(np.array_equal(
+        got, [edit_distance_ends_free(*j) for j in jobs]))
+    a, _c = pool_args(dev, *text_side(jobs))
+    kern = K2.myers_striped(*a).cpu().numpy()
+    plain = K2.myers_striped_torch(*a).cpu().numpy()
+    err = int(np.abs(kern - plain).max())
+    check(err == 0 and oracle, "K2 disagrees with its plain version or the "
+          "numpy ends-free DP")
 
-    # time: reassignment-shaped jobs (non-spanning read 0.4-1.4 kb against
-    # spanning reads 1.5-2.4 kb, the read's missing end free)
-    tjobs = []
+    # timing: reassignment-shaped jobs (a non-spanning read of 0.4-1.4 kb
+    # against spanning reads of 1.5-2.4 kb, the read's missing end free)
     alleles = [rand_acgt(rs, int(rs.integers(1500, 2401))) for _ in range(64)]
-    for k in range(timing_jobs):
-        a = alleles[k % len(alleles)]
+    tjobs = []
+    for k in range(16384):
+        al = alleles[k % len(alleles)]
         cut = int(rs.integers(400, 1401))
-        tjobs.append((mutate(rs, a[:cut], 0.002), a, 0, 0, 0, len(a) - cut))
-    args, cells = oriented_inputs(dev, tjobs)
-    ms = time_ms(lambda: K2.myers_striped(*args), dev, reps=3)
-    plain_ms = time_ms(lambda: K2.myers_striped_torch(*args), dev, reps=1)
-    same = np.array_equal(K2.myers_striped(*args).cpu().numpy(),
-                          K2.myers_striped_torch(*args).cpu().numpy())
-    log(f"K2 time, {len(tjobs)} jobs, n_words {args[7]}, text <= {args[8]}, "
-        f"{cells:.4g} cells: kernel {ms:.3f} ms "
-        f"({cells / ms / 1e6:.2f} Gcells/s), plain {plain_ms:.3f} ms "
-        f"({cells / plain_ms / 1e6:.2f} Gcells/s), equal {same}")
-    if not same:
-        raise AssertionError("K2 disagrees with its plain version (timing "
-                             "set)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        tjobs.append((mutate(rs, al[:cut], 0.002), al, 0, 0, 0,
+                      len(al) - cut))
+    a, cells = pool_args(dev, *text_side(tjobs))
+    ms = time_ms(lambda: K2.myers_striped(*a), 3)
+    plain_ms = time_ms(lambda: K2.myers_striped_torch(*a), 1)
+    check(bool(torch.equal(K2.myers_striped(*a), K2.myers_striped_torch(*a))),
+          "K2 disagrees with its plain version on the timing set")
+    return report("K2 myers_striped", len(jobs), cells, err == 0, oracle, ms,
+                  plain_ms, err)
+
+
+def kernel_k3(dev, rs) -> dict:
+    import torch
+
+    from otter_tpu_torch.kernels import myers_banded as K3
+    from otter_tpu_torch.native import edit_distance_batch
+
+    pairs = []
+    for _ in range(600):
+        s = rand_acgt(rs, int(rs.integers(2049, 4097)))
+        pairs.append((s, mutate(rs, s, float(rs.choice([0.0, 0.002, 0.02,
+                                                         0.1])))))
+    native, _cells = edit_distance_batch(pairs, os.cpu_count() or 1)
+    (pool, ip, it, nl, ml, _tb, _te, nw, tl), _c = pool_args(dev, pairs)
+    zero = torch.zeros_like(nl)
+    err, oracle = 0, True
+    for k in (63, 255):
+        kern = K3.myers_banded(pool, ip, it, nl, ml, k, nw, tl).cpu().numpy()
+        plain = K3.myers_banded_torch(pool, ip, it, nl, ml, zero, zero, k,
+                                      nw, tl).cpu().numpy()
+        err = max(err, int(np.abs(kern - plain).max()))
+        oracle &= bool(np.all((kern >= native)
+                              & ((native > k) | (kern == native))))
+    check(err == 0 and oracle, "K3 disagrees with its plain version or the "
+          "native distance")
+
+    # timing: 8,192 pairs of 2.3-2.5 kb reads of one allele at 0.2% error
+    seqs = []
+    for _ in range(32):
+        s = rand_acgt(rs, int(rs.integers(2300, 2501)))
+        seqs += [mutate(rs, s, 0.002) for _ in range(4)]
+    iu, ju = np.triu_indices(len(seqs), 1)
+    sel_p = rs.choice(len(iu), size=min(8192, len(iu)), replace=False)
+    (pool, ip, it, nl, ml, _tb, _te, nw, tl), _cells = pool_args(
+        dev, [(seqs[i], seqs[j]) for i, j in zip(iu[sel_p], ju[sel_p])])
+    zero = torch.zeros_like(nl)
+    cells = float((nl.cpu().numpy() * 128).sum())
+    ms = time_ms(lambda: K3.myers_banded(pool, ip, it, nl, ml, 63, nw, tl), 3)
+    plain_ms = time_ms(lambda: K3.myers_banded_torch(
+        pool, ip, it, nl, ml, zero, zero, 63, nw, tl), 1)
+    check(bool(torch.equal(
+        K3.myers_banded(pool, ip, it, nl, ml, 63, nw, tl),
+        K3.myers_banded_torch(pool, ip, it, nl, ml, zero, zero, 63, nw, tl))),
+        "K3 disagrees with its plain version on the timing set")
+    return report("K3 myers_banded (k 63, 255; band cells)", len(pairs),
+                  cells, err == 0, oracle, ms, plain_ms, err)
+
+
+def kernel_k4(dev, rs) -> dict:
+    import torch
+
+    from otter_tpu_torch.kernels import myers_banded as K4
+    from otter_tpu_torch.ops.align_np import edit_distance_ends_free
+
+    jobs = [j for j in one_sided_jobs(rs, 300, 2049, 3500)
+            if j[2] or j[3] or j[4] or j[5]]
+    pairs, tbs, tes = text_side(jobs)
+    want = np.array([edit_distance_ends_free(*j) for j in jobs])
+    (pool, ip, it, nl, ml, tb, te, nw, tl), _c = pool_args(dev, pairs, tbs,
+                                                          tes)
+    err, oracle = 0, True
+    for k in (63, 255):
+        kern = K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, k, nw,
+                                  tl).cpu().numpy()
+        plain = K4.myers_banded_torch(pool, ip, it, nl, ml, tb, te, k, nw,
+                                      tl).cpu().numpy()
+        err = max(err, int(np.abs(kern - plain).max()))
+        oracle &= bool(np.all((kern >= want)
+                              & ((want > k) | (kern == want))))
+    check(err == 0 and oracle, "K4 disagrees with its plain version or the "
+          "numpy ends-free DP")
+
+    # timing: reassignment-shaped jobs past 2048 (a non-spanning read of
+    # 2.1-2.4 kb against a 2.4-2.6 kb spanning read, the read's end free)
+    alleles = [rand_acgt(rs, int(rs.integers(2400, 2601))) for _ in range(64)]
+    tjobs = []
+    for k in range(4096):
+        al = alleles[k % len(alleles)]
+        cut = int(rs.integers(2100, 2401))
+        tjobs.append((mutate(rs, al[:cut], 0.002), al, 0, 0, 0,
+                      len(al) - cut))
+    (pool, ip, it, nl, ml, tb, te, nw, tl), _cells = pool_args(
+        dev, *text_side(tjobs))
+    cells = float((nl.cpu().numpy() * (64 + 128)).sum())
+    ms = time_ms(lambda: K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, 63,
+                                            nw, tl), 3)
+    plain_ms = time_ms(lambda: K4.myers_banded_torch(
+        pool, ip, it, nl, ml, tb, te, 63, nw, tl), 1)
+    check(bool(torch.equal(
+        K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, 63, nw, tl),
+        K4.myers_banded_torch(pool, ip, it, nl, ml, tb, te, 63, nw, tl))),
+        "K4 disagrees with its plain version on the timing set")
+    return report("K4 myers_banded_ef (k 63, 255; band cells)", len(jobs),
+                  cells, err == 0, oracle, ms, plain_ms, err)
+
+
+def kernel_k7(dev, rs) -> dict:
+    import torch
+
+    from otter_tpu_torch.kernels import edit_banded as K7
+    from otter_tpu_torch.kernels.myers_pallas import int32_tensor
+    from otter_tpu_torch.native import edit_distance_batch
+
+    pairs = []
+    for _ in range(400):
+        s = with_n(rs, rand_acgt(rs, int(rs.integers(1, 2500))), 3)
+        pairs.append((s, mutate(rs, s, float(rs.choice([0.0, 0.01, 0.1])))
+                      or "N"))
+    native, _cells = edit_distance_batch(pairs, os.cpu_count() or 1)
+    err, oracle = 0, True
+    for k in (63, 511):
+        a = [int32_tensor(x, dev) for x in K7.pack_banded(pairs, k)]
+        kern = K7.edit_banded(*a, k).cpu().numpy()
+        plain = K7.edit_banded_torch(*a, k).cpu().numpy()
+        err = max(err, int(np.abs(kern - plain).max()))
+        oracle &= bool(np.all((native > k) | (kern == native)))
+    check(err == 0 and oracle, "K7 disagrees with its plain version or the "
+          "native distance")
+
+    # timing: 1,024 pairs of 1.5-1.8 kb reads with N bases, k = 63
+    tpairs = []
+    for _ in range(1024):
+        s = with_n(rs, rand_acgt(rs, int(rs.integers(1500, 1801))), 3)
+        tpairs.append((s, with_n(rs, mutate(rs, s, 0.002), 2)))
+    a = [int32_tensor(x, dev) for x in K7.pack_banded(tpairs, 63)]
+    cells = float(sum(max(len(x), len(y)) for x, y in tpairs) * 128)
+    ms = time_ms(lambda: K7.edit_banded(*a, 63), 3)
+    plain_ms = time_ms(lambda: K7.edit_banded_torch(*a, 63), 1)
+    check(bool(torch.equal(K7.edit_banded(*a, 63),
+                           K7.edit_banded_torch(*a, 63))),
+          "K7 disagrees with its plain version on the timing set")
+    return report("K7 edit_banded (k 63, 511; band cells)", len(pairs), cells,
+                  err == 0, oracle, ms, plain_ms, err)
+
+
+def consensus_jobs(rs, n, lo, hi, err):
+    """Consensus-shaped jobs: a member read against its allele's
+    representative, End2End or with the member's missing end free."""
+    reps = [rand_acgt(rs, int(rs.integers(lo, hi + 1))) for _ in range(32)]
+    jobs = []
+    for k in range(n):
+        rep = reps[k % len(reps)]
+        mem = mutate(rs, rep, err)
+        cut = int(rs.integers(0, len(mem) // 3 + 1))
+        jobs.append([(mem, rep, 0, 0, 0, 0), (mem[cut:], rep, 0, 0, cut, 0),
+                     (mem[: len(mem) - cut], rep, 0, 0, 0, cut)][k % 3])
+    return jobs
+
+
+def kernel_k5(dev, rs) -> dict:
+    import torch
+
+    from otter_tpu_torch.kernels import affine_tb as K5
+    from otter_tpu_torch.ops.align_batch import affine_cigars_multi
+
+    jobs = consensus_jobs(rs, 300, 100, 2000, 0.01) + \
+        consensus_jobs(rs, 60, 100, 1200, 0.08)
+    err, same_ops = 0, True
+    for k, rows in ((63, 2048), (255, 2048)):
+        tw = K5._t_words(rows, k)
+        a = [torch.from_numpy(x).to(dev)
+             for x in K5.pack_affine_jobs(jobs, rows, k)]
+        ops, end = K5.affine_tb(*a, k, tw)
+        ops_p, end_p = K5.affine_tb_torch(*a, k, tw)
+        err = max(err, int((end - end_p).abs().max()))
+        same_ops &= bool(torch.equal(ops, ops_p))
+    cigs, failed = K5.affine_cigars_tb(jobs, dev)
+    want = affine_cigars_multi(jobs)
+    walked = sorted(set(range(len(jobs))) - set(failed))
+    oracle = all(cigs[i] == want[i] for i in walked)
+    log(f"K5: {len(walked)} of {len(jobs)} members walked on the card, the "
+        f"rest left to the native ladder")
+    check(err == 0 and same_ops and oracle and len(walked) > len(jobs) // 2,
+          "K5 disagrees with its plain version or the native cigar ladder")
+
+    # timing: 2,048 consensus members of 1.5-1.8 kb alleles at 0.2% error
+    tjobs = consensus_jobs(rs, 2048, 1500, 1800, 0.002)
+    tw = K5._t_words(2048, 63)
+    a = [torch.from_numpy(x).to(dev)
+         for x in K5.pack_affine_jobs(tjobs, 2048, 63)]
+    cells = float(sum(len(j[0]) for j in tjobs) * 128)
+    ms = time_ms(lambda: K5.affine_tb(*a, 63, tw), 3)
+    plain_ms = time_ms(lambda: K5.affine_tb_torch(*a, 63, tw), 1)
+    o1, e1 = K5.affine_tb(*a, 63, tw)
+    o2, e2 = K5.affine_tb_torch(*a, 63, tw)
+    check(bool(torch.equal(o1, o2) and torch.equal(e1, e2)),
+          "K5 disagrees with its plain version on the timing set")
+    return report("K5 affine_tb (k 63, 255; band cells)", len(jobs), cells,
+                  err == 0 and same_ops, oracle, ms, plain_ms, err)
+
+
+def kernel_k6(dev, rs) -> dict:
+    import torch
+
+    from otter_tpu_torch.kernels import affine_tb as K6
+    from otter_tpu_torch.ops.align_batch import affine_cigars_multi
+
+    jobs = consensus_jobs(rs, 120, 2500, 4000, 0.005)
+    err, same_ops = 0, True
+    for k, rows in ((63, 4096), (127, 4096)):
+        tw = K6._t_words(rows, k)
+        a = [torch.from_numpy(x).to(dev)
+             for x in K6.pack_affine_jobs(jobs, rows, k)]
+        ops, end = K6.affine_tb_ckpt(*a, k, tw)
+        ops_p, end_p = K6.affine_tb_torch(*a, k, tw)
+        err = max(err, int((end - end_p).abs().max()))
+        same_ops &= bool(torch.equal(ops, ops_p))
+    before = K6.affine_tb_ckpt_cuda.launches
+    cigs, failed = K6.affine_cigars_tb(jobs, dev)
+    check(K6.affine_tb_ckpt_cuda.launches > before,
+          "4 kb members did not take K6")
+    want = affine_cigars_multi(jobs)
+    walked = sorted(set(range(len(jobs))) - set(failed))
+    oracle = all(cigs[i] == want[i] for i in walked)
+    check(err == 0 and same_ops and oracle and len(walked) > len(jobs) // 2,
+          "K6 disagrees with its plain version or the native cigar ladder")
+
+    # timing: 512 members of 3.5-4 kb alleles at 0.2% error, k = 127
+    tjobs = consensus_jobs(rs, 512, 3500, 4000, 0.002)
+    tw = K6._t_words(4096, 127)
+    a = [torch.from_numpy(x).to(dev)
+         for x in K6.pack_affine_jobs(tjobs, 4096, 127)]
+    cells = float(sum(len(j[0]) for j in tjobs) * 256)
+    ms = time_ms(lambda: K6.affine_tb_ckpt(*a, 127, tw), 3)
+    plain_ms = time_ms(lambda: K6.affine_tb_torch(*a, 127, tw), 1)
+    o1, e1 = K6.affine_tb_ckpt(*a, 127, tw)
+    o2, e2 = K6.affine_tb_torch(*a, 127, tw)
+    check(bool(torch.equal(o1, o2) and torch.equal(e1, e2)),
+          "K6 disagrees with its plain version on the timing set")
+    return report("K6 affine_tb_ckpt (k 63, 127; band cells)", len(jobs),
+                  cells, err == 0 and same_ops, oracle, ms, plain_ms, err)
+
+
+def phase_kernels(dev) -> dict:
+    log("== phase 3: kernels against their plain versions and oracles")
+    rs = np.random.default_rng(3)
+    return {"myers_pool": kernel_k1(dev, rs),
+            "myers_striped": kernel_k2(dev, rs),
+            "myers_banded": kernel_k3(dev, rs),
+            "myers_banded_ef": kernel_k4(dev, rs),
+            "edit_banded": kernel_k7(dev, rs),
+            "affine_tb": kernel_k5(dev, rs),
+            "affine_tb_ckpt": kernel_k6(dev, rs)}
 
 
 # ---------------------------------------------------------------------------
-# Phases 5-6: the main path
+# Phases 4-5: the main path
 # ---------------------------------------------------------------------------
 
 
-def params_for(device: str, **kw):
-    from otter_tpu.config import OtterOpts
+class HostEngine:
+    """Exact engine with the port engine's surface on the host: native C++
+    edit distances and the host ends-free DP; with no ``device`` the
+    consensus takes the native affine ladder."""
 
-    p = OtterOpts()
-    p.read_group = "S1"
-    p.device = device
-    for k, v in kw.items():
-        setattr(p, k, v)
-    return p
-
-
-def run_port(bam, bed, ref, device, backend=None, **kw) -> str:
-    from otter_tpu_torch.models.assemble import assemble
-
-    out = io.StringIO()
-    assemble(bam, bed, ref, False, params_for(device, **kw), out=out,
-             dist_backend=backend)
-    return out.getvalue()
-
-
-def small_fixtures(tmp):
-    """The fixtures of tests/test_e2e_assemble.py (het, with a reference)
-    and tests/test_dist_backend.py (device path)."""
-    from fixtures import make_reference, simulate_region_bam, write_fasta
-
-    out = []
-    for name, seed, cov, err, sim_seed in (("het", 123, 12, 0.002, 99),
-                                           ("backend", 61, 10, 0.003, 5)):
-        rng = random.Random(seed)
-        ref = make_reference(rng, length=3000, repeat="CAG", repeat_at=1500,
-                             repeat_units=20)
-        start, end = 1500, 1560
-        bam = os.path.join(tmp, f"{name}.bam")
-        simulate_region_bam(bam, "chr1", ref, (start, end),
-                            [ref[start:end], "CAG" * 30],
-                            per_allele_cov=cov, error_rate=err, seed=sim_seed)
-        fa = os.path.join(tmp, f"{name}.fa")
-        write_fasta(fa, [("chr1", ref)])
-        bed = os.path.join(tmp, f"{name}.bed")
-        with open(bed, "w") as fh:
-            fh.write(f"chr1\t{start}\t{end}\n")
-        out.append((name, bam, bed, fa))
-    return out
-
-
-def phase_small(dev_name: str, tmp: str):
-    from otter_tpu.models.assemble import assemble as reference_assemble
-
-    log("== phase 5: small main path against otter_tpu --device host")
-    for name, bam, bed, fa in small_fixtures(tmp):
-        for label, ref, kw in (("sam", "", {}), ("fasta", "", {"is_fa": True}),
-                               ("sam+reference", fa, {})):
-            want = io.StringIO()
-            reference_assemble(bam, bed, ref, False,
-                               params_for("host", **kw), out=want)
-            got = run_port(bam, bed, ref, dev_name, **kw)
-            same = got == want.getvalue()
-            log(f"{name} {label}: {len(got)} bytes, identical {same}")
-            if not same:
-                raise AssertionError(f"{name} {label}: port output differs "
-                                     "from otter_tpu --device host")
-
-
-def build_partial_fixture(tmp, n_regions=4, cov=100, region_len=1500,
-                          expansion=300, err=0.002, partial=0.2, seed=78):
-    """HiFi tandem-repeat loci where a fraction ``partial`` of the reads end
-    inside the locus (non-spanning reads, reassigned by ends-free
-    alignment) and the expanded allele is 2.4 kb (its pairs are longer than
-    K1's 2048 bp). Layout and error walk as bench_e2e.build_ont_fixture."""
-    from bench_e2e import _noisy_walk
-    from fixtures import make_bam, read_record
-    from otter_tpu.io.bam import BAM_CDEL, BAM_CINS, BAM_CMATCH
-
-    rng = random.Random(seed)
-    nprng = np.random.Generator(np.random.PCG64(seed * 7919 + 13))
-    span = region_len + 2 * 500 + 2 * max(1000, region_len // 2)
-    ref_len = 1000 + n_regions * span + 2000
-    ref = "".join(rng.choice("ACGT") for _ in range(ref_len))
-    records = []
-    bed = os.path.join(tmp, "partial_regions.bed")
-    with open(bed, "w") as fh:
-        for r in range(n_regions):
-            start = 1000 + r * span
-            end = start + region_len
-            fh.write(f"chr1\t{start}\t{end}\n")
-            for allele in (ref[start:end],
-                           ref[start:end] + "CAG" * expansion):
-                for _c in range(cov // 2):
-                    lf = rng.randint(300, 500)
-                    out, cig = [], []
-                    _noisy_walk(ref[start - lf : start], err, nprng, out, cig)
-                    if rng.random() < partial:
-                        cut = rng.randint(200, region_len - 200)
-                        _noisy_walk(allele[:cut], err, nprng, out, cig)
-                    else:
-                        consumed = _noisy_walk(allele, err, nprng, out, cig)
-                        extra = consumed - region_len
-                        if extra > 0:  # the expansion aligns as insertions
-                            trimmed = []
-                            for ln, op in reversed(cig):
-                                if extra > 0 and op == BAM_CMATCH:
-                                    take = min(ln, extra)
-                                    extra -= take
-                                    trimmed.append((take, BAM_CINS))
-                                    if take < ln:
-                                        trimmed.append((ln - take, op))
-                                else:
-                                    trimmed.append((ln, op))
-                            cig = list(reversed(trimmed))
-                        elif extra < 0:
-                            cig.append((-extra, BAM_CDEL))
-                        rf = rng.randint(300, 500)
-                        _noisy_walk(ref[end : end + rf], err, nprng, out, cig)
-                    records.append(read_record(
-                        f"p{r}_{len(records)}", 0, start - lf, "".join(out),
-                        cig, tags=[("rq", "f", 0.99)]))
-    bam = os.path.join(tmp, "partial_reads.bam")
-    make_bam(bam, [("chr1", ref_len)], records)
-    return bam, bed
-
-
-class ReferenceEngine:
-    """Exact engine with the port engine's surface, on the host: native
-    C++ edit distances and the host ends-free DP (what ``otter_tpu
-    --device cpu`` runs)."""
-
-    mode = "reference"
+    mode = "host"
+    device = None
 
     def __init__(self):
-        self.threads = min(32, os.cpu_count() or 1)
+        self.threads = os.cpu_count() or 1
 
     def distances_async_indexed(self, seqs, xi, yi):
         return [(seqs[a], seqs[b]) for a, b in zip(xi, yi)]
@@ -490,16 +610,14 @@ class ReferenceEngine:
         return list(pairs)
 
     def distances_collect(self, pairs):
-        from otter_tpu.native import edit_distance_batch
+        from otter_tpu_torch.native import edit_distance_batch
 
         out = np.zeros(len(pairs), dtype=np.int64)
         todo = []
         for i, (x, y) in enumerate(pairs):
-            if x == y:
-                continue
             if not x or not y:
                 out[i] = max(len(x), len(y))
-            else:
+            elif x != y:
                 todo.append(i)
         if todo:
             d, _c = edit_distance_batch([pairs[i] for i in todo],
@@ -514,7 +632,7 @@ class ReferenceEngine:
         return jobs
 
     def ends_free_collect(self, jobs):
-        from otter_tpu.ops.align_batch import edit_ends_free_batch
+        from otter_tpu_torch.ops.align_batch import edit_ends_free_batch
 
         return edit_ends_free_batch(jobs)
 
@@ -522,109 +640,114 @@ class ReferenceEngine:
         return self.ends_free_collect(jobs)
 
 
-class ReferenceBackend:
+class HostBackend:
     def __init__(self):
-        self.engine = ReferenceEngine()
+        self.engine = HostEngine()
 
 
-def hclust_gate_cost(bam, bed, dev_name):
-    """Host cost of the python hclust that a process without JAX takes
-    (the native NN-chain sits behind a "jax" in sys.modules gate): both
-    on one region's condensed distance matrix."""
-    from otter_tpu.native import hclust_average_native
-    from otter_tpu.ops.hclust import hclust_average
-    from otter_tpu_torch.models.assemble import _make_dist_backend
+def params(**kw):
+    from otter_tpu_torch.config import OtterOpts
 
-    from otter_tpu.io.bam import BamReader
-    from otter_tpu.io.bed import parse_bed_file
-    from otter_tpu.models.assemble import prepare_region
-
-    params = params_for(dev_name)
-    region = parse_bed_file(bed)[0]
-    rdr = BamReader(bam, load_index=True)
-    work = prepare_region(params, region, rdr, None, False, io.StringIO())
-    rdr.close()
-    seqs = [work.reads[i].seq for i in work.valid_indeces]
-    iu, ju = np.triu_indices(len(seqs), 1)
-    eng = _make_dist_backend(params).engine
-    d = eng.distances_indexed(seqs, iu, ju)
-    cond = d / np.maximum([len(seqs[i]) for i in iu],
-                          [len(seqs[j]) for j in ju])
-    t0 = time.perf_counter()
-    hclust_average(len(seqs), cond)
-    t_py = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hclust_average_native(cond, len(seqs))
-    t_nat = time.perf_counter() - t0
-    return len(seqs), t_py, t_nat
+    p = OtterOpts()
+    p.read_group = "S1"
+    p.device = "cuda"
+    for k, v in kw.items():
+        setattr(p, k, v)
+    return p
 
 
-def run_cell(name, bam, bed, dev_name, n_regions):
-    """The port on the card, then the reference engine; returns the card
-    run's counters and times."""
-    from otter_tpu.utils import metrics
-    from otter_tpu_torch.models.assemble import _make_dist_backend
+def run(bam, bed, backend, ref="", **kw) -> str:
+    from otter_tpu_torch.models.assemble import assemble
 
-    backend = _make_dist_backend(params_for(dev_name))
+    out = io.StringIO()
+    assemble(bam, bed, ref, False, params(**kw), out=out,
+             dist_backend=backend)
+    return out.getvalue()
+
+
+def phase_small(tmp: str) -> None:
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.utils.synth import tandem_repeat_loci
+
+    log("== phase 4: small main path against the host engine")
+    bam, bed = tandem_repeat_loci(tmp, n_regions=3, cov=24, err=0.003,
+                                  expansion=30, region_len=300, seed=5,
+                                  name="small")
+    for label, kw in (("sam", {}), ("fasta", {"is_fa": True})):
+        got = run(bam, bed, TorchDistBackend("cuda"), **kw)
+        want = run(bam, bed, HostBackend(), **kw)
+        log(f"small {label}: {len(got)} bytes, identical {got == want}")
+        check(got == want, f"small {label}: card output differs from the "
+              "host engine")
+
+
+def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool):
+    """The port on the card, then the host engine: byte-identical output.
+    Returns the card run's counters."""
+    import torch
+
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.utils import metrics
+
+    backend = TorchDistBackend("cuda")
     metrics.reset()
     t0 = time.perf_counter()
-    got = run_port(bam, bed, "", dev_name, backend=backend)
-    synchronize(backend.engine.device)
+    got = run(bam, bed, backend)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     snap = metrics.snapshot()
     t0 = time.perf_counter()
-    want = run_port(bam, bed, "", dev_name, backend=ReferenceBackend())
-    ref_wall = time.perf_counter() - t0
-    same = got == want
+    want = run(bam, bed, HostBackend())
+    host_wall = time.perf_counter() - t0
     c = backend.engine.counters()
-    kernel_pairs = c["pairs_k1"] + c["pairs_k2"]
-    dist_pairs = kernel_pairs + c["pairs_native"]
-    share = kernel_pairs / dist_pairs if dist_pairs else 0.0
     body = [l for l in got.splitlines() if l and not l.startswith("@")]
-    log(f"{name}: {n_regions} regions, {len(body)} alleles, identical to "
-        f"the reference engine: {same}")
-    log(f"{name}: counters {json.dumps(c)}, kernel share of distance pairs "
-        f"{share:.6f}")
-    log(f"{name}: wall {wall:.3f} s, {n_regions / wall:.3f} regions/s, "
-        f"{dist_pairs / wall:.1f} pairs/s, "
-        f"{c['cells'] / wall / 1e9:.3f} Gcells/s end to end; reference "
-        f"engine wall {ref_wall:.3f} s")
-    phases = {k[5:]: round(v, 4) for k, v in snap.items()
-              if k.startswith("time.")}
-    log(f"{name}: phase seconds {json.dumps(phases, sort_keys=True)}")
-    if not same:
-        raise AssertionError(f"{name}: card output differs from the "
-                             "reference engine")
-    if share < 0.99:
-        raise AssertionError(f"{name}: only {share:.4f} of the distance "
-                             "pairs went through K1/K2")
+    log(f"{name}: {n_regions} regions, {len(body)} alleles, identical to the "
+        f"host engine: {got == want}")
+    log(f"{name}: counters {json.dumps(c)}")
+    check(got == want, f"{name}: card output differs from the host engine")
+    if rates:
+        pairs = c["pairs_k1"] + c["pairs_k3"] + c["pairs_k2"] + c["pairs_k7"]
+        phases = {k[5:]: round(v, 4) for k, v in snap.items()
+                  if k.startswith("time.")}
+        log(f"{name}: wall {wall:.3f} s, {n_regions / wall:.3f} regions/s, "
+            f"{pairs / wall:.1f} pairs/s, {c['cells'] / wall / 1e9:.3f} "
+            f"Gcells/s (Myers DP cells) end to end; host engine wall "
+            f"{host_wall:.3f} s")
+        log(f"{name}: phase seconds {json.dumps(phases, sort_keys=True)}")
     return c
 
 
-def phase_full(dev_name: str, tmp: str, n_regions=32, cov=100,
-               partial_regions=4):
-    import bench_e2e
-    from otter_tpu_torch.kernels import myers_pallas as K1
-    from otter_tpu_torch.kernels import myers_striped as K2
+def phase_full(tmp: str) -> dict:
+    from otter_tpu_torch.utils.synth import tandem_repeat_loci
 
-    log("== phase 6: full-size main path")
+    log("== phase 5: full-size main path")
     t0 = time.perf_counter()
-    bam_a, bed_a = bench_e2e.build_ont_fixture(
-        tmp, n_regions=n_regions, err=0.002, cov=cov, expansion=100,
-        region_len=1500, seed=77, name="smoke")
-    bam_b, bed_b = build_partial_fixture(tmp, n_regions=partial_regions,
-                                         cov=cov)
+    bam_a, bed_a = tandem_repeat_loci(tmp, n_regions=32, cov=100, err=0.002,
+                                      expansion=100, region_len=1500,
+                                      seed=77, name="smoke")
+    bam_b, bed_b = tandem_repeat_loci(tmp, n_regions=4, cov=100, err=0.002,
+                                      expansion=300, region_len=1500,
+                                      seed=78, name="routes", partial=0.2,
+                                      n_bases=2)
+    bam_c, bed_c = tandem_repeat_loci(tmp, n_regions=2, cov=24, err=0.002,
+                                      expansion=2000, region_len=1500,
+                                      seed=79, name="long")
     log(f"fixtures built in {time.perf_counter() - t0:.2f} s")
-    K1.myers_pool_cuda.launches = 0
-    K2.myers_striped_cuda.launches = 0
-    run_cell("cell hifi-tr-1.5k", bam_a, bed_a, dev_name, n_regions)
-    run_cell("cell hifi-tr-partial", bam_b, bed_b, dev_name, partial_regions)
-    launches = {"K1": K1.myers_pool_cuda.launches,
-                "K2": K2.myers_striped_cuda.launches}
-    log(f"kernel launches in phase 6: {json.dumps(launches)}")
-    n, t_py, t_nat = hclust_gate_cost(bam_a, bed_a, dev_name)
-    log(f"hclust of one region (n={n}): python {t_py * 1e3:.2f} ms, native "
-        f"{t_nat * 1e3:.2f} ms")
+    wrappers = cuda_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    launches = dict.fromkeys(wrappers, 0)
+    for name, bam, bed, n, rates in (
+            ("cell hifi-tr-1.5k", bam_a, bed_a, 32, True),
+            ("route coverage (parity only)", bam_b, bed_b, 4, False),
+            ("route coverage, 7.5 kb allele (parity only)", bam_c, bed_c, 2,
+             False)):
+        c = run_cell(name, bam, bed, n, rates)
+        for k, fn in wrappers.items():  # the host run launches nothing
+            launches[k] = fn.launches
+    log(f"kernel launches in phase 5: {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    check(not missing, f"kernels never launched on the main path: {missing}")
     return launches
 
 
@@ -634,22 +757,13 @@ def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
     phase_build()
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
+    timings = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_small("cuda", tmp)
-        launches = phase_full("cuda", tmp)
-    if not (launches["K1"] > 0 and launches["K2"] > 0):
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{launches}")
-    kernels = [
-        {"name": "myers_pool", "route": "cuda",
-         "source": "otter_tpu_torch/csrc/myers.cu", "replaces": K1_REPLACES,
-         "launches": launches["K1"], **k1},
-        {"name": "myers_striped", "route": "cuda",
-         "source": "otter_tpu_torch/csrc/myers_striped.cu",
-         "replaces": K2_REPLACES, "launches": launches["K2"], **k2},
-    ]
+        phase_small(tmp)
+        launches = phase_full(tmp)
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": launches[name], **timings[name]}
+               for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,19 @@
 """otter-tpu on PyTorch and CUDA: the port of ``otter_tpu`` to an NVIDIA
 H100 (Hopper, sm_90a).
 
-The JAX package ``otter_tpu`` stays the reference. This package imports its
-JAX-free layers (io, seqs, config, native, the host ops and the host half of
-the assemble pipeline) and replaces what needs JAX:
+The JAX package ``otter_tpu`` stays the reference; this package imports
+nothing from it. Layering, as in the JAX package:
 
-  kernels/  hand-written CUDA kernels with plain PyTorch versions beside
-            them, and the distance engine that routes pairs to them
-  models/   the batched assemble pipeline on that engine
+  io/       host-side feeders and writers (BGZF/BAM/BAI/FASTA/BED)
+  seqs/     read/allele data model + CIGAR breakpoint projection
+  ops/      exact host algorithms (alignment, KDE, hclust, POA)
+  native.py the threaded C++ host library (csrc/otter_native.cpp)
+  kernels/  hand-written CUDA kernels (csrc/*.cu) with plain PyTorch
+            versions beside them, and the engines that route work to them
+  models/   the batched assemble pipeline on those engines
   cli/      ``python -m otter_tpu_torch.cli.main assemble ...``
 
 It never imports ``jax``.
 """
+
+OTTER_VERSION = "v1.0"  # parity with reference src/main.cpp:9

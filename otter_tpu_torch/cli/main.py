@@ -13,8 +13,8 @@ import argparse
 import sys
 from typing import List, Optional
 
-from otter_tpu import OTTER_VERSION
-from otter_tpu.config import OtterOpts
+from .. import OTTER_VERSION
+from ..config import OtterOpts
 
 
 def _print_help() -> None:

@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "myers_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -64,14 +66,8 @@ myers_pool_kernel(const uint32_t* __restrict__ pool, int w_pool,
   uint64_t* hi_s = planes + NW * kThreads + tid;
   const uint32_t* prow = pool + static_cast<size_t>(idx_pat[b]) * w_pool;
   for (int w = 0; w < nwp; ++w) {
-    uint64_t lo = 0, hi = 0;
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t pw = prow[4 * w + q];
-      for (int i = 0; i < 16; ++i) {
-        lo |= static_cast<uint64_t>((pw >> (2 * i)) & 1u) << (16 * q + i);
-        hi |= static_cast<uint64_t>((pw >> (2 * i + 1)) & 1u) << (16 * q + i);
-      }
-    }
+    uint64_t lo, hi;
+    otter::pattern_word(prow, w, lo, hi);
     lo_s[w * kThreads] = lo;
     hi_s[w * kThreads] = hi;
   }
@@ -90,38 +86,18 @@ myers_pool_kernel(const uint32_t* __restrict__ pool, int w_pool,
     const uint32_t tw = trow[j0 >> 4];
     const int jn = min(16, n - j0);
     for (int c = 0; c < jn; ++c) {
-      const uint32_t ch = (tw >> (2 * c)) & 3u;
-      const uint64_t flip_lo = (ch & 1u) ? 0ull : ~0ull;
-      const uint64_t flip_hi = (ch & 2u) ? 0ull : ~0ull;
+      const otter::CharFlip f((tw >> (2 * c)) & 3u);
       uint64_t ca = 0, cp = 1, cm = 0;  // top boundary row: Ph carry-in 1
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
         if (w < nwp) {
-          const uint64_t eq = (lo_s[w * kThreads] ^ flip_lo) &
-                              (hi_s[w * kThreads] ^ flip_hi);
-          const uint64_t pv = Pv[w];
-          const uint64_t mv = Mv[w];
-          const uint64_t xv = eq | mv;
-          const uint64_t t = eq & pv;
-          uint64_t s = t + pv;
-          const uint64_t c1 = s < t;
-          s += ca;
-          ca = c1 | (s < ca);
-          const uint64_t xh = (s ^ pv) | eq;
-          uint64_t ph = mv | ~(xh | pv);
-          uint64_t mh = pv & xh;
+          uint64_t ph, mh;
+          otter::myers_step(f.eq(lo_s[w * kThreads], hi_s[w * kThreads]),
+                            Pv[w], Mv[w], ca, cp, cm, ph, mh);
           if (w == sw) {
             score += static_cast<int>((ph & sb) != 0) -
                      static_cast<int>((mh & sb) != 0);
           }
-          const uint64_t po = ph >> 63;
-          const uint64_t mo = mh >> 63;
-          ph = (ph << 1) | cp;
-          mh = (mh << 1) | cm;
-          cp = po;
-          cm = mo;
-          Pv[w] = mh | ~(xv | ph);
-          Mv[w] = ph & xv;
         }
       }
     }

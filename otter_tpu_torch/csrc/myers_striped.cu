@@ -31,6 +31,8 @@
 
 #include <cuda_runtime.h>
 
+#include "myers_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -60,14 +62,8 @@ myers_striped_kernel(const uint32_t* __restrict__ pool, int w_pool,
   uint64_t* mv_g = pv_g + plane;
   const uint32_t* prow = pool + static_cast<size_t>(idx_pat[b]) * w_pool;
   for (int w = 0; w < nwp; ++w) {
-    uint64_t lo = 0, hi = 0;
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t pw = prow[4 * w + q];
-      for (int i = 0; i < 16; ++i) {
-        lo |= static_cast<uint64_t>((pw >> (2 * i)) & 1u) << (16 * q + i);
-        hi |= static_cast<uint64_t>((pw >> (2 * i + 1)) & 1u) << (16 * q + i);
-      }
-    }
+    uint64_t lo, hi;
+    otter::pattern_word(prow, w, lo, hi);
     lo_g[w * stride] = lo;
     hi_g[w * stride] = hi;
     pv_g[w * stride] = ~0ull;
@@ -85,37 +81,19 @@ myers_striped_kernel(const uint32_t* __restrict__ pool, int w_pool,
     const int jn = min(16, n - j0);
     for (int c = 0; c < jn; ++c) {
       const int j = j0 + c;
-      const uint32_t ch = (tw >> (2 * c)) & 3u;
-      const uint64_t flip_lo = (ch & 1u) ? 0ull : ~0ull;
-      const uint64_t flip_hi = (ch & 2u) ? 0ull : ~0ull;
+      const otter::CharFlip f((tw >> (2 * c)) & 3u);
       uint64_t ca = 0, cm = 0;
       uint64_t cp = j >= tb_b ? 1ull : 0ull;  // free leading text: carry 0
       for (int w = 0; w < nwp; ++w) {
         const size_t o = w * stride;
-        const uint64_t eq = (lo_g[o] ^ flip_lo) & (hi_g[o] ^ flip_hi);
-        const uint64_t pv = pv_g[o];
-        const uint64_t mv = mv_g[o];
-        const uint64_t xv = eq | mv;
-        const uint64_t t = eq & pv;
-        uint64_t s = t + pv;
-        const uint64_t c1 = s < t;
-        s += ca;
-        ca = c1 | (s < ca);
-        const uint64_t xh = (s ^ pv) | eq;
-        uint64_t ph = mv | ~(xh | pv);
-        uint64_t mh = pv & xh;
+        uint64_t pv = pv_g[o], mv = mv_g[o], ph, mh;
+        otter::myers_step(f.eq(lo_g[o], hi_g[o]), pv, mv, ca, cp, cm, ph, mh);
         if (w == sw) {
           score += static_cast<int>((ph & sb) != 0) -
                    static_cast<int>((mh & sb) != 0);
         }
-        const uint64_t po = ph >> 63;
-        const uint64_t mo = mh >> 63;
-        ph = (ph << 1) | cp;
-        mh = (mh << 1) | cm;
-        cp = po;
-        cm = mo;
-        pv_g[o] = mh | ~(xv | ph);
-        mv_g[o] = ph & xv;
+        pv_g[o] = pv;
+        mv_g[o] = mv;
       }
       if (j + 1 >= first_capture) captured = min(captured, score);
     }

@@ -34,12 +34,15 @@ _I = ctypes.c_int
 
 
 def sources() -> list:
+    """The CUDA translation units (the host library otter_native.cpp is
+    built by ``native.py``)."""
     return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
 
 
 def _lib_path() -> str:
     h = hashlib.sha1()
-    for path in sources():
+    for path in sources() + sorted(glob.glob(os.path.join(_SRC_DIR,
+                                                          "*.cuh"))):
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + b"\0" + fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -94,6 +97,22 @@ def load() -> ctypes.CDLL:
             lib.otter_myers_striped.restype = _I
             lib.otter_myers_striped.argtypes = [_P, _I, _P, _P, _P, _P, _P,
                                                 _P, _P, _I, _I, _I, _P, _P]
+            lib.otter_myers_banded.restype = _I
+            lib.otter_myers_banded.argtypes = [_P, _I, _P, _P, _P, _P, _I,
+                                               _P, _I, _I, _I, _P, _P]
+            lib.otter_myers_banded_ef.restype = _I
+            lib.otter_myers_banded_ef.argtypes = [_P, _I, _P, _P, _P, _P, _P,
+                                                  _P, _I, _P, _I, _I, _I, _P,
+                                                  _P]
+            lib.otter_edit_banded.restype = _I
+            lib.otter_edit_banded.argtypes = [_P, _P, _P, _I, _I, _P, _I, _P,
+                                              _P]
+            lib.otter_affine_tb.restype = _I
+            lib.otter_affine_tb.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P,
+                                            _P, _I, _P, _P, _P]
+            lib.otter_affine_tb_ckpt.restype = _I
+            lib.otter_affine_tb_ckpt.argtypes = [_P, _I, _P, _I, _P, _I, _I,
+                                                 _P, _P, _I, _P, _P, _P, _P]
             lib.otter_cuda_error_string.restype = ctypes.c_char_p
             lib.otter_cuda_error_string.argtypes = [_I]
             _lib = lib

@@ -3,40 +3,47 @@
 Counterpart of ``EditDistanceEngine`` and ``IndexedPairs`` in
 ``otter_tpu/kernels/edit_pallas.py``, cut to the surface the assemble path
 calls. ``mode`` is ``"cuda"`` (kernels on the card) or ``"torch-cpu"`` (the
-kernels' plain versions, for CPU tensors); never ``"pallas"``, so the shared
-host modules keep their host KDE and native consensus paths.
+kernels' plain versions, for CPU tensors).
 
-Distance routing (after the equal-object and empty-side shortcuts):
+Distance routing (after the equal-object and empty-side shortcuts), as on
+the TPU:
 
 * ACGT pairs, shorter side <= 2048, longer side <= 32 kb -> K1
   (``myers_pallas``), one launch per n_words bucket {4, 8, 16, 32, 64};
-* ACGT pairs, shorter side > 2048, longer side <= 32 kb -> K2
-  (``myers_striped``) as a full matrix;
-* everything else (non-ACGT, over 32 kb) -> ``otter_tpu.native``'s
-  threaded C++ edit distance.
+* ACGT pairs, shorter side > 2048, longer side <= 32 kb -> the K3 ladder
+  (``myers_banded``) over bands k whose window stays under a quarter of
+  the matrix, then K2 (``myers_striped``, full matrix) for the rest;
+* everything else (a non-ACGT char, or a side over 32 kb) -> the K7 ladder
+  (``edit_banded``), doubling k until every pair resolves.
 
 Ends-free routing: jobs without frees take the distance path; one-sided
-ACGT jobs (both sides non-empty, <= 32 kb) -> K2; the rest -> the host DP
-``otter_tpu.ops.align_batch.edit_ends_free_batch``. Every route is exact.
+ACGT jobs (both sides non-empty, <= 32 kb) -> K2, or the K4 ladder
+(``myers_banded_ef``) first when the free-less side is over 2048; the rest
+(frees on both sides, non-ACGT) -> the host DP
+``ops.align_batch.edit_ends_free_batch``, as the JAX package does. Every
+route is exact.
 
-The ``*_async`` calls launch on the current stream and return; the
-``*_collect`` calls make the one copy back to the host. Plain-integer
-counters record where each pair and job went.
+The ``*_async`` calls launch K1 and the short K2 jobs on the current stream
+and return; the ``*_collect`` calls copy those results back and run the
+ladders, which read each rung's results before launching the next.
+Plain-integer counters record where each pair and job went.
 """
 
 from __future__ import annotations
 
-import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .edit_banded import edit_banded, pack_banded
+from .myers_banded import myers_banded, myers_banded_ef
 from .myers_pallas import (int32_tensor, myers_pool, pack_pool,
                            pool_width)
 from .myers_striped import (dedup_oriented, myers_striped,
                             myers_striped_ends_free_async,
-                            myers_striped_ends_free_collect, striped_n_words)
+                            myers_striped_ends_free_collect, oriented_inputs,
+                            striped_n_words)
 
 # shorter-side thresholds of the K1 n_words buckets 4, 8, 16, 32 (64 above)
 _NW_THRESHOLDS = np.asarray([128, 256, 512, 1024], dtype=np.int64)
@@ -90,7 +97,11 @@ class EditDistanceEngine:
     """Exact batched Levenshtein and ends-free distances on one device."""
 
     MYERS_MAX_WORDS = 64          # K1: shorter side <= 2048 bp
-    MYERS_TEXT_CAP = 1 << 15      # K1 and K2: longer side <= 32 kb
+    MYERS_TEXT_CAP = 1 << 15      # K1-K4: longer side <= 32 kb
+    K_LONG = (63, 127, 255, 511, 1023, 2047)   # K3 / K4 bands
+    BANDED_FRAC = 0.25            # a band past this share of m: K2 instead
+    K_LADDER = (63, 127, 255, 511, 1023, 2047, 4095, 8191, 16383, 32767)
+    K7_CHUNK = 1024               # pairs per K7 launch
 
     def __init__(self, device="cuda"):
         device = torch.device(device)
@@ -104,21 +115,24 @@ class EditDistanceEngine:
         else:
             raise ValueError(f"unsupported device {device}")
         self.device = device
-        self.native_threads = min(32, os.cpu_count() or 1)
-        self.cells = 0        # m * n DP cells of the pairs and jobs K1/K2 ran
+        self.cells = 0        # m * n DP cells of the Myers pairs and jobs
         self.pairs_k1 = 0
+        self.pairs_k3 = 0     # resolved by a K3 rung
         self.pairs_k2 = 0
-        self.pairs_native = 0
+        self.pairs_k7 = 0
         self.jobs_k2 = 0
+        self.jobs_k4 = 0      # resolved by a K4 rung
         self.jobs_host = 0
+        self.jobs_k5 = 0      # consensus cigars from K5
+        self.jobs_affine_host = 0   # consensus cigars K5 left to the ladder
 
     def _int32(self, a) -> torch.Tensor:
         return int32_tensor(a, self.device)
 
     def counters(self) -> dict:
         return {k: getattr(self, k) for k in (
-            "pairs_k1", "pairs_k2", "pairs_native", "jobs_k2", "jobs_host",
-            "cells")}
+            "pairs_k1", "pairs_k3", "pairs_k2", "pairs_k7", "jobs_k2",
+            "jobs_k4", "jobs_host", "jobs_k5", "jobs_affine_host", "cells")}
 
     # -- distances -----------------------------------------------------------
 
@@ -133,9 +147,25 @@ class EditDistanceEngine:
         seqs, xi, yi = dedup_oriented(pairs)
         return self.distances_async_indexed(seqs, xi, yi)
 
+    def _pool_inputs(self, pv: IndexedPairs, idx: np.ndarray):
+        """Pairs ``idx`` oriented pattern = shorter side, over one pool of
+        the sequences they read: (pool, ip, it, m, n), the lengths numpy."""
+        lx = pv.lens[pv.xi[idx]]
+        ly = pv.lens[pv.yi[idx]]
+        swap = lx > ly
+        pat = np.where(swap, pv.yi[idx], pv.xi[idx])
+        txt = np.where(swap, pv.xi[idx], pv.yi[idx])
+        uniq, inv = np.unique(np.concatenate([pat, txt]), return_inverse=True)
+        m = np.minimum(lx, ly)
+        n = np.maximum(lx, ly)
+        width = pool_width(max(self.MYERS_MAX_WORDS,
+                               striped_n_words(int(m.max()))), int(n.max()))
+        pool = self._int32(pack_pool([pv.seqs[s] for s in uniq], width))
+        return pool, inv[: len(idx)], inv[len(idx):], m, n
+
     def distances_async_indexed(self, seqs: List[str], xi, yi):
-        """Route and launch pair p = (seqs[xi[p]], seqs[yi[p]]); returns a
-        handle for ``distances_collect``."""
+        """Route pair p = (seqs[xi[p]], seqs[yi[p]]) and launch its K1
+        buckets; returns a handle for ``distances_collect``."""
         pv = IndexedPairs(seqs, xi, yi)
         lx = pv.lens[pv.xi]
         ly = pv.lens[pv.yi]
@@ -148,65 +178,99 @@ class EditDistanceEngine:
         acgt = acgt_flags(seqs)
         elig = todo & acgt[pv.xi] & acgt[pv.yi] & (mx <= self.MYERS_TEXT_CAP)
         rest = np.nonzero(todo & ~elig)[0]
-        self.pairs_native += len(rest)
+        base = elig & (mn <= self.MYERS_MAX_WORDS * 32)
+        long_idx = np.nonzero(elig & ~base)[0]
         pending = []
-        kidx = np.nonzero(elig)[0]
-        if len(kidx):
-            # pattern = shorter side; one pool of the sequences the kernels
-            # read, shipped once for every launch of this call
-            swap = lx[kidx] > ly[kidx]
-            pat = np.where(swap, pv.yi[kidx], pv.xi[kidx])
-            txt = np.where(swap, pv.xi[kidx], pv.yi[kidx])
-            uniq, inv = np.unique(np.concatenate([pat, txt]),
-                                  return_inverse=True)
-            ip, it = inv[: len(kidx)], inv[len(kidx):]
-            m, n = mn[kidx], mx[kidx]
-            base = m <= self.MYERS_MAX_WORDS * 32
-            nw_long = striped_n_words(int(m[~base].max())) if (~base).any() \
-                else 0
-            width = max(pool_width(self.MYERS_MAX_WORDS, int(n.max())),
-                        2 * nw_long)
-            pool = self._int32(pack_pool([seqs[s] for s in uniq], width))
+        bidx = np.nonzero(base)[0]
+        if len(bidx):
+            pool, ip, it, m, n = self._pool_inputs(pv, bidx)
             nwi = np.searchsorted(_NW_THRESHOLDS, m, side="left")
-            for g in np.unique(nwi[base]):
-                sel = base & (nwi == g)
+            for g in np.unique(nwi):
+                sel = nwi == g
                 dev = myers_pool(pool, self._int32(ip[sel]),
                                  self._int32(it[sel]), self._int32(n[sel]),
                                  self._int32(m[sel]), int(4 << g),
                                  int(n[sel].max()))
-                pending.append((kidx[sel], dev))
+                pending.append((bidx[sel], dev))
                 self.pairs_k1 += int(sel.sum())
                 self.cells += int((m[sel] * n[sel]).sum())
-            if nw_long:
-                sel = ~base
-                zero = self._int32(np.zeros(int(sel.sum())))
-                dev = myers_striped(pool, self._int32(ip[sel]),
-                                    self._int32(it[sel]),
-                                    self._int32(n[sel]),
-                                    self._int32(m[sel]), zero, zero,
-                                    nw_long, int(n[sel].max()))
-                pending.append((kidx[sel], dev))
-                self.pairs_k2 += int(sel.sum())
-                self.cells += int((m[sel] * n[sel]).sum())
-        return pv, pending, rest, out
+        return pv, pending, long_idx, rest, out
 
     def distances_collect(self, handle) -> np.ndarray:
         """Finish a ``distances_async*`` handle: one device-to-host copy of
-        every kernel result, then the native C++ route."""
-        pv, pending, rest, out = handle
+        the K1 results, then the K3/K2 and K7 ladders."""
+        pv, pending, long_idx, rest, out = handle
         if pending:
             flat = torch.cat([dev for _m, dev in pending]).cpu().numpy()
             offset = 0
             for members, _dev in pending:
                 out[members] = flat[offset : offset + len(members)]
                 offset += len(members)
+        if len(long_idx):
+            self._long_pair_route(pv, long_idx, out)
         if len(rest):
-            from otter_tpu.native import edit_distance_batch
-
-            d, _cells = edit_distance_batch([pv[int(i)] for i in rest],
-                                            self.native_threads)
-            out[rest] = d
+            self._banded_ladder(pv, rest, out)
         return out
+
+    def _long_pair_route(self, pv: IndexedPairs, idx: np.ndarray,
+                         out: np.ndarray) -> None:
+        """ACGT pairs past K1's 2048: K3 rungs k with n - m <= k <=
+        BANDED_FRAC * m and k < n (a band near the full matrix costs as
+        much as K2), one launch per rung; what no rung resolves -> K2."""
+        pool, ip, it, m, n = self._pool_inputs(pv, idx)
+        nw = striped_n_words(int(m.max()))
+        left = np.ones(len(idx), dtype=bool)
+        for k in self.K_LONG:
+            now = left & (n - m <= k) & (k <= m * self.BANDED_FRAC) & (k < n)
+            if not now.any():
+                continue
+            sel = np.nonzero(now)[0]
+            d = myers_banded(pool, self._int32(ip[sel]), self._int32(it[sel]),
+                             self._int32(n[sel]), self._int32(m[sel]), k, nw,
+                             int(n[sel].max())).cpu().numpy()
+            self.cells += int((n[sel] * np.minimum(m[sel],
+                                                   2 * (k + 1))).sum())
+            ok = d <= k
+            out[idx[sel[ok]]] = d[ok]
+            left[sel[ok]] = False
+            self.pairs_k3 += int(ok.sum())
+        if left.any():
+            sel = np.nonzero(left)[0]
+            zero = self._int32(np.zeros(len(sel)))
+            d = myers_striped(pool, self._int32(ip[sel]), self._int32(it[sel]),
+                              self._int32(n[sel]), self._int32(m[sel]), zero,
+                              zero, nw, int(n[sel].max())).cpu().numpy()
+            out[idx[sel]] = d
+            self.pairs_k2 += len(sel)
+            self.cells += int((m[sel] * n[sel]).sum())
+
+    def _banded_ladder(self, pv: IndexedPairs, idx: np.ndarray,
+                       out: np.ndarray) -> None:
+        """K7 rungs from k = 63, doubling, over the pairs whose length
+        difference fits the band; the last rung covers the longest side,
+        so every pair resolves."""
+        lx = pv.lens[pv.xi[idx]]
+        ly = pv.lens[pv.yi[idx]]
+        maxlen = int(np.maximum(lx, ly).max())
+        ladder = [kk for kk in self.K_LADDER if kk < 2 * maxlen]
+        if not ladder or ladder[-1] < maxlen:
+            ladder.append(((maxlen + 127) // 128) * 128 - 1)
+        left = np.ones(len(idx), dtype=bool)
+        for k in [kk for kk in ladder if kk >= self.K_LADDER[0]] \
+                or [ladder[-1]]:
+            sel = np.nonzero(left & (np.abs(lx - ly) <= k))[0]
+            for c0 in range(0, len(sel), self.K7_CHUNK):
+                chunk = sel[c0 : c0 + self.K7_CHUNK]
+                a, bpad, mn = pack_banded([pv[int(i)] for i in idx[chunk]], k)
+                d = edit_banded(*(self._int32(x) for x in (a, bpad, mn)),
+                                k).cpu().numpy()
+                ok = d <= k
+                out[idx[chunk[ok]]] = d[ok]
+                left[chunk[ok]] = False
+                self.pairs_k7 += int(ok.sum())
+            if not left.any():
+                return
+        raise AssertionError("banded DP failed to converge")
 
     # -- ends-free -----------------------------------------------------------
 
@@ -214,8 +278,8 @@ class EditDistanceEngine:
         return self.ends_free_collect(self.ends_free_async(jobs))
 
     def ends_free_async(self, jobs):
-        """Route and launch ends-free jobs (pattern, text, pb, pe, tb, te);
-        returns a handle for ``ends_free_collect``."""
+        """Route ends-free jobs (pattern, text, pb, pe, tb, te) and launch
+        the short K2 ones; returns a handle for ``ends_free_collect``."""
         out = np.zeros(len(jobs), dtype=np.int64)
         acgt: dict = {}
 
@@ -226,6 +290,7 @@ class EditDistanceEngine:
             return v
 
         k2: List[int] = []
+        k4: List[int] = []
         host: List[int] = []
         zero_idx: List[int] = []
         for idx, (p, t, pb, pe, tb, te) in enumerate(jobs):
@@ -237,7 +302,11 @@ class EditDistanceEngine:
                   and min(len(p), len(t)) > 0
                   and max(len(p), len(t)) <= self.MYERS_TEXT_CAP
                   and is_acgt(p) and is_acgt(t)):
-                k2.append(idx)
+                free_less = t if (pb or pe) else p
+                if len(free_less) > self.MYERS_MAX_WORDS * 32:
+                    k4.append(idx)
+                else:
+                    k2.append(idx)
             else:
                 host.append(idx)
         k2h = None
@@ -249,16 +318,65 @@ class EditDistanceEngine:
         self.jobs_host += len(host)
         zh = (self.distances_async([jobs[i][:2] for i in zero_idx])
               if zero_idx else None)
-        return jobs, out, k2, k2h, host, zero_idx, zh
+        return jobs, out, k2, k2h, k4, host, zero_idx, zh
 
     def ends_free_collect(self, handle) -> np.ndarray:
-        jobs, out, k2, k2h, host, zero_idx, zh = handle
+        jobs, out, k2, k2h, k4, host, zero_idx, zh = handle
         if k2h is not None:
             out[k2] = myers_striped_ends_free_collect(k2h)
+        if k4:
+            self._ends_free_banded_route(jobs, np.asarray(k4), out)
         if zh is not None:
             out[zero_idx] = self.distances_collect(zh)
         if host:
-            from otter_tpu.ops.align_batch import edit_ends_free_batch
+            from ..ops.align_batch import edit_ends_free_batch
 
             out[host] = edit_ends_free_batch([jobs[i] for i in host])
         return out
+
+    def _ends_free_banded_route(self, jobs, idx: np.ndarray,
+                                out: np.ndarray) -> None:
+        """One-sided ACGT jobs whose free-less side (the Myers pattern) is
+        past 2048: K4 rungs k with klo + 2k <= BANDED_FRAC * m and k < n
+        (klo: the free begin rounded up to a power of two >= 64), one launch
+        per rung; what no rung resolves -> K2."""
+        oriented, tbs, tes = [], [], []
+        for i in idx:
+            p, t, pb, pe, tb, te = jobs[i]
+            if pb or pe:
+                oriented.append((t, p))
+                tbs.append(pb)
+                tes.append(pe)
+            else:
+                oriented.append((p, t))
+                tbs.append(tb)
+                tes.append(te)
+        pool, ip, it, nl, ml, tbt, tet, nw, _tl = oriented_inputs(
+            oriented, tbs, tes, self.device)
+        m = np.fromiter((len(p) for p, _t in oriented), np.int64, len(idx))
+        n = np.fromiter((len(t) for _p, t in oriented), np.int64, len(idx))
+        klo = np.asarray([1 << max(6, (max(b, 1) - 1).bit_length())
+                          for b in tbs], dtype=np.int64)
+        left = np.ones(len(idx), dtype=bool)
+        for k in self.K_LONG:
+            now = left & (klo + 2 * k <= m * self.BANDED_FRAC) & (k < n)
+            if not now.any():
+                continue
+            sel = torch.from_numpy(np.nonzero(now)[0]).to(self.device)
+            seln = np.nonzero(now)[0]
+            d = myers_banded_ef(pool, ip[sel], it[sel], nl[sel], ml[sel],
+                                tbt[sel], tet[sel], k, nw,
+                                int(n[seln].max())).cpu().numpy()
+            ok = d <= k
+            out[idx[seln[ok]]] = d[ok]
+            left[seln[ok]] = False
+            self.jobs_k4 += int(ok.sum())
+        if left.any():
+            seln = np.nonzero(left)[0]
+            sel = torch.from_numpy(seln).to(self.device)
+            d = myers_striped(pool, ip[sel], it[sel], nl[sel], ml[sel],
+                              tbt[sel], tet[sel], nw,
+                              int(n[seln].max())).cpu().numpy()
+            out[idx[seln]] = d
+            self.jobs_k2 += len(seln)
+            self.cells += int((m[seln] * n[seln]).sum())

@@ -3,7 +3,7 @@
 Counterpart of ``otter_tpu/kernels/myers_pallas.py`` (the pool path,
 ``myers_pool_pallas`` -> ``_myers_kernel_packed``). The inputs are the numpy
 arrays the TPU launch takes, as tensors: ``pool`` (S, W_pool) int32 rows from
-``pack_pool_2bit``, and per pair ``idx_pat``, ``idx_txt``, ``nlen`` and
+``pack_pool``, and per pair ``idx_pat``, ``idx_txt``, ``nlen`` and
 ``minit`` (B,) int32. The pattern is the shorter side (``minit`` chars, at
 most ``32 * n_words``), the text the longer (``nlen`` chars, at most
 ``text_len``). The result is (B,) int32: the exact global Levenshtein
@@ -21,38 +21,16 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-TB = 8          # the TPU kernel's sublane rows of pairs per program
-LANES = 128
-PAIRS_PER_PROG = TB * LANES
 N_WORDS_BUCKETS = (4, 8, 16, 32, 64)
 
 M32 = 0xFFFFFFFF
 
-_POOL_CODE = np.zeros(256, dtype=np.uint32)
-for _b, _c in ((65, 0), (67, 1), (71, 2), (84, 3)):
-    _POOL_CODE[_b] = _c
-_POOL_SHIFTS = (np.arange(16, dtype=np.uint32) * 2).astype(np.uint32)
-
-
-def pack_pool_2bit(seqs: List[str], n_words_pool: int) -> np.ndarray:
-    """(S, n_words_pool) int32, each row a sequence 2-bit packed (16 chars
-    per word, char j -> bits 2(j%16)..+1 of word j//16, padding packs as
-    'A'=0): the numpy oracle of the TPU package's pool layout."""
-    out = np.zeros((len(seqs), n_words_pool), dtype=np.uint32)
-    for s, seq in enumerate(seqs):
-        codes = _POOL_CODE[np.frombuffer(seq.encode("latin-1"), np.uint8)]
-        n = len(codes)
-        W = (n + 15) // 16
-        buf = np.zeros(W * 16, dtype=np.uint32)
-        buf[:n] = codes
-        out[s, :W] = np.bitwise_or.reduce(
-            buf.reshape(W, 16) << _POOL_SHIFTS, axis=1)
-    return out.view(np.int32)
-
 
 def pack_pool(seqs: List[str], n_words_pool: int) -> np.ndarray:
-    """``pack_pool_2bit`` by the threaded C++ packer (bit-identical)."""
-    from otter_tpu.native import pack_pool_2bit_native
+    """(S, n_words_pool) int32, each row a sequence 2-bit packed (16 chars
+    per word, char j -> bits 2(j%16)..+1 of word j//16, padding packs as
+    'A' = 0): the TPU package's pool layout, by the threaded C++ packer."""
+    from ..native import pack_pool_2bit_native
 
     return pack_pool_2bit_native(seqs, n_words_pool)
 

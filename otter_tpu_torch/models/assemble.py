@@ -1,13 +1,19 @@
 """``otter assemble`` on the PyTorch engine (parity with src/assemble.cpp).
 
-Counterpart of ``otter_tpu/models/assemble.py``'s batched pipeline: regions
-are prepared on the host, every region's all-vs-all pair workload (and its
-reassignment pairs and ends-free jobs) goes to the distance engine in one
-launch per batch, and the host half (KDE, hclust, reassignment, consensus,
-emission: ``_finish_batch``) is the JAX package's own JAX-free code. With
-the engine's mode not ``"pallas"`` that host half takes the float64 host KDE
-and the native C++ consensus ladder, as the JAX package does off the TPU,
-so the output is byte-identical to ``otter --device host``.
+Counterpart of ``otter_tpu/models/assemble.py``'s batched pipeline. Pipeline
+per region (assemble.cpp:39-158): offsets -> parse_anreads -> skip
+over-covered -> optional local realignment -> --reads-only early-out ->
+valid/invalid partition (haplotag fallback) -> distance matrix ->
+otter_hclust -> invalid reassignment -> consensus -> allele emission with
+the ic tag.
+
+Regions are prepared on the host; every region's all-vs-all pair workload
+(and its reassignment pairs and ends-free jobs) goes to the distance engine
+in one launch per batch, and the batch's consensus cigars go to the affine
+traceback kernel in one launch. Everything downstream of the exact integer
+distances is float64 host math (KDE, hclust), so output is byte-identical
+to the JAX package's ``--device host`` path (emission stays in region
+order).
 
 Single process: the multi-host sharding of the JAX package is not ported.
 """
@@ -17,36 +23,196 @@ from __future__ import annotations
 import io
 import os
 import sys
-from typing import List, Optional, TextIO
 
 import numpy as np
+from dataclasses import dataclass
+from typing import List, Optional, TextIO
 
-from otter_tpu.config import OtterOpts
-from otter_tpu.io.bam import BamReader
-from otter_tpu.io.bed import BED, parse_bed_file
-from otter_tpu.io.fasta import Faidx
-from otter_tpu.models.assemble import (DEFAULT_REGION_BATCH, RegionWork,
-                                       _finish_batch, _region_pair_coords,
-                                       completed_regions, prepare_region)
-from otter_tpu.utils import metrics
-from otter_tpu.utils.timestamp import antimestamp
-
+from ..config import OtterOpts
+from ..io.bam import BamReader
+from ..io.bed import BED, parse_bed_file
+from ..io.fasta import Faidx
+from ..ops.cluster import ClusteringStatus, otter_hclust
+from ..ops.consensus import (
+    fill_dist_matrix,
+    invalid_reassignment,
+    local_realignment,
+)
+from ..ops.distmat import DistMatrix
+from ..seqs.extract import parse_anreads
+from ..seqs.model import AnAllele, AnRead
+from ..utils import metrics
+from ..utils.timestamp import antimestamp
 from ..kernels.dist_backend import TorchDistBackend
 from ..kernels.edit_engine import IndexedPairs
 
 DEVICES = ("cuda", "cpu")
 
-# settings that send the shared host code into the JAX package's device
-# paths (device KDE, affine traceback kernels, device POA and hclust)
-_JAX_ONLY_SETTINGS = ("OTTER_TPU_MESH_KDE", "OTTER_TPU_AFFINE_DEVICE",
-                      "OTTER_TPU_POA_DEVICE", "OTTER_TPU_HCLUST_DEVICE")
+# settings that select a device path of the JAX package (device KDE, device
+# POA and hclust) which the port has not reached yet
+_JAX_ONLY_SETTINGS = ("OTTER_TPU_MESH_KDE", "OTTER_TPU_POA_DEVICE",
+                      "OTTER_TPU_HCLUST_DEVICE")
 
 
 def _check_settings() -> None:
     for name in _JAX_ONLY_SETTINGS:
         if os.environ.get(name) == "1":
-            raise RuntimeError(f"{name}=1 selects a JAX device path, which "
-                               "the PyTorch port does not have")
+            raise RuntimeError(f"{name}=1 selects a device path the PyTorch "
+                               "port does not have yet")
+
+DEFAULT_REGION_BATCH = int(os.environ.get("OTTER_TPU_REGION_BATCH", "256"))
+
+
+def count_spanning_reads(anread_block: List[AnRead]) -> int:
+    return sum(1 for r in anread_block if r.is_spanning())
+
+
+def partition_valid_reads(ignore_haps: bool, anread_block: List[AnRead]):
+    """(assemble.cpp:27-37)"""
+    valid: List[int] = []
+    invalid: List[int] = []
+    for i, read in enumerate(anread_block):
+        if not read.is_spanning():
+            invalid.append(i)
+        else:
+            if ignore_haps:
+                valid.append(i)
+            elif read.hpt.is_defined():
+                valid.append(i)
+            else:
+                invalid.append(i)
+    return valid, invalid
+
+
+@dataclass
+class RegionWork:
+    """A region after host-side preparation, awaiting its distance matrix."""
+    bed: BED
+    reads: List[AnRead]
+    ignore_haps: bool
+    valid_indeces: List[int]
+    invalid_indeces: List[int]
+
+
+def prepare_region(params: OtterOpts, local_bed: BED, bam: BamReader,
+                   faidx: Optional[Faidx], reads_only: bool,
+                   out: TextIO) -> Optional[RegionWork]:
+    """Host I/O + filters (assemble.cpp:51-122). Returns None when the
+    region was fully handled (reads-only output, skips, warnings)."""
+    mod_bed = BED(local_bed.chr, local_bed.start - params.offset_l,
+                  local_bed.end + params.offset_r)
+    if params.is_debug:
+        sys.stderr.write(
+            f"({antimestamp()}): [DEBUG] Processing {local_bed.to_sc_string()}\n")
+    anread_block = parse_anreads(params, mod_bed, bam)
+    if params.is_debug:
+        sys.stderr.write(
+            f"({antimestamp()}): [DEBUG] Loaded {len(anread_block)} reads\n")
+    if len(anread_block) > params.max_cov:
+        sys.stderr.write(
+            f"({antimestamp()}): [WARNING] Skipping region with abnormal coverage: "
+            f"{local_bed.to_sc_string()} ({len(anread_block)})\n")
+        return None
+    if faidx is not None:
+        local_realignment(mod_bed.chr, mod_bed.start, mod_bed.end, params.flank,
+                          params.min_sim, faidx, anread_block)
+        if params.is_debug:
+            sys.stderr.write(
+                f"({antimestamp()}): [DEBUG] Locally realigned "
+                f"{len(anread_block)} reads\n")
+    if reads_only:
+        for read in anread_block:
+            if params.is_fa:
+                out.write(read.to_fa(local_bed.to_sc_string()) + "\n")
+            else:
+                out.write(read.to_sam(local_bed.chr, local_bed.start,
+                                      local_bed.end, params.read_group) + "\n")
+        return None
+
+    spanning_reads = count_spanning_reads(anread_block)
+    if spanning_reads == 0:
+        sys.stderr.write(
+            f"({antimestamp()}): [WARNING] No spanning reads for "
+            f"{local_bed.to_sc_string()}\n")
+        return None
+    local_ignore_haps = params.ignore_haps
+    valid_indeces, invalid_indeces = partition_valid_reads(local_ignore_haps,
+                                                           anread_block)
+    if len(valid_indeces) < 2:
+        local_ignore_haps = True
+        valid_indeces, invalid_indeces = partition_valid_reads(
+            local_ignore_haps, anread_block)
+        if spanning_reads != len(valid_indeces):
+            sys.stderr.write(
+                f"({antimestamp()}): [ERROR] Unexpected number of valid reads "
+                f"after switching to 'ignore-haps' mode: {spanning_reads} vs "
+                f"{len(valid_indeces)}\n")
+            raise SystemExit(1)
+    if not valid_indeces:
+        sys.stderr.write(
+            f"({antimestamp()}): [WARNING] No spanning reads for "
+            f"{local_bed.to_sc_string()}\n")
+        return None
+    return RegionWork(local_bed, anread_block, local_ignore_haps,
+                      valid_indeces, invalid_indeces)
+
+
+def cluster_labels(params: OtterOpts, work: RegionWork,
+                   distmatrix: DistMatrix, densities=None):
+    """Hierarchical clustering into initial labels (assemble.cpp:128-133)."""
+    clustmsg = ClusteringStatus()
+    otter_hclust(work.ignore_haps, params.max_alleles, params.bandwidth_short,
+                 params.bandwidth_length, params.bandwidth_long,
+                 params.max_error, params.min_cov_fraction,
+                 params.min_cov_fraction2_l, params.min_cov_fraction2_f,
+                 work.valid_indeces, distmatrix, work.reads, clustmsg,
+                 densities=densities)
+    labels = [-1] * len(work.reads)
+    for i in range(len(clustmsg.labels)):
+        labels[work.valid_indeces[i]] = clustmsg.labels[i]
+    return clustmsg, labels
+
+
+def cluster_finish(params: OtterOpts, work: RegionWork,
+                   distmatrix: DistMatrix, clustmsg, labels, pre):
+    """Reassignment (with precomputed distances) + consensus preparation
+    (assemble.cpp:134-141)."""
+    from ..ops.consensus import consensus_prepare
+
+    if work.invalid_indeces:
+        invalid_reassignment(work.ignore_haps, params.min_sim, params.max_error,
+                             clustmsg.fc, work.reads, labels, precomputed=pre)
+    alleles = [AnAllele() for _ in range(clustmsg.fc)]
+    tasks = consensus_prepare(work.ignore_haps, work.reads, labels,
+                              work.valid_indeces, clustmsg.fc, distmatrix,
+                              alleles)
+    return alleles, tasks
+
+
+def emit_region(params: OtterOpts, work: RegionWork, clustmsg, alleles,
+                out: TextIO) -> None:
+    """Allele emission with the ic tag (assemble.cpp:143-149)."""
+    local_bed = work.bed
+    for l in range(clustmsg.fc):
+        alleles[l].ic = clustmsg.ic
+        if params.is_fa:
+            out.write(alleles[l].to_fa(
+                params.read_group, local_bed.to_sc_string() + "#" + str(l)) + "\n")
+        else:
+            out.write(alleles[l].to_sam(
+                local_bed.to_sc_string() + "_" + str(l), local_bed.chr,
+                local_bed.start, local_bed.end, params.read_group) + "\n")
+
+
+def _region_pair_coords(n: int) -> np.ndarray:
+    """(P, 2) condensed-order (i, j) coordinates for n valid reads — the
+    exact row-major upper-triangle order of fill_dist_matrix
+    (analignments.cpp:117-124), so a region's kernel results ARE its
+    DistMatrix.values block."""
+    from ..ops.distmat import triu_pair_indices
+
+    iu, ju = triu_pair_indices(n)
+    return np.column_stack([iu, ju]).astype(np.int64)
 
 
 def process_region_batch(params: OtterOpts, batch: List[RegionWork],
@@ -66,7 +232,7 @@ def _dispatch_batch(params: OtterOpts, batch: List[RegionWork],
     labeled spanning j) pair set depends only on the valid/invalid read
     partition, not on the cluster labels, so its End2End pairs join the
     pooled distance pairs and its ends-free jobs launch here too."""
-    from otter_tpu.ops.consensus import reassignment_jobs
+    from ..ops.consensus import reassignment_jobs
 
     # unique sequence pool by object identity: a region's pair set shares
     # each read.seq object ~n/2 times
@@ -130,77 +296,137 @@ def _dispatch_batch(params: OtterOpts, batch: List[RegionWork],
     return spans, all_pairs, handle, reassign_infos, ef_handle, e2e_base
 
 
-def _assemble_batched(params: OtterOpts, bam_path: str,
-                      bed_regions: List[BED], bam: BamReader,
-                      faidx: Optional[Faidx], reference: str,
+def _finish_batch(params: OtterOpts, staged, dist_backend,
+                  out: TextIO) -> None:
+    """Collect a ``_dispatch_batch`` handle and run the host half (KDE,
+    cluster, reassignment, consensus, emission) for its regions in order."""
+    spans, all_pairs, handle, reassign_infos, ef_handle, e2e_base = staged
+    from ..ops.consensus import consensus_apply_batched
+    from ..ops.kde import kde_densities_batched, kde_grid
+
+    engine = dist_backend.engine
+    # non-pair spans (haplotag 0/1 grids, single-allele) fill on the host
+    matrices: List = [None] * len(spans)
+    for idx, (work, coords, start) in enumerate(spans):
+        if coords is None:
+            distmatrix = DistMatrix(len(work.valid_indeces))
+            if params.max_alleles != 1:
+                fill_dist_matrix(work.ignore_haps, work.reads,
+                                 work.valid_indeces, distmatrix)
+            matrices[idx] = distmatrix
+    with metrics.phase("device_dispatch"):
+        dists = engine.distances_collect(handle) if handle is not None \
+            else []
+
+    pair_maxlen = all_pairs.maxlens().astype(np.float64)
+    dists_arr = np.asarray(dists, dtype=np.float64)
+    for idx, (work, coords, start) in enumerate(spans):
+        if coords is None:
+            continue
+        # coords are exactly condensed order (_region_pair_coords), so the
+        # result block IS the DistMatrix.values vector
+        distmatrix = DistMatrix(len(work.valid_indeces))
+        nv = len(coords)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            distmatrix.values = (dists_arr[start : start + nv]
+                                 / pair_maxlen[start : start + nv])
+        matrices[idx] = distmatrix
+
+    # per-region float64 KDE densities, pooled across the batch, for the
+    # regions otter_hclust takes to the KDE
+    kde_regions = []
+    for si, (work, _c, _s) in enumerate(spans):
+        if params.max_alleles == 1 or len(work.valid_indeces) <= 2:
+            continue
+        bw = params.bandwidth_short
+        for i in work.valid_indeces:
+            if len(work.reads[i].seq) >= params.bandwidth_length:
+                bw = params.bandwidth_long
+                break
+        kde_regions.append((si, matrices[si].values, bw))
+    region_dens: dict = {}
+    if kde_regions:
+        with metrics.phase("cluster_consensus"):
+            dens_list = kde_densities_batched(
+                [v for _si, v, _b in kde_regions],
+                [b for _si, _v, b in kde_regions], kde_grid(0.0025))
+        region_dens = {si: d
+                       for (si, _v, _b), d in zip(kde_regions, dens_list)}
+
+    # cluster every region; the reassignment distances rode the batch's
+    # distance launch and its ends-free launch (_dispatch_batch)
+    region_jobs = []
+    for si, ((work, coords, start), distmatrix) in enumerate(
+            zip(spans, matrices)):
+        with metrics.phase("cluster_consensus"), \
+                metrics.phase("cluster_labels"):
+            clustmsg, labels = cluster_labels(params, work, distmatrix,
+                                              densities=region_dens.get(si))
+        region_jobs.append((work, distmatrix, clustmsg, labels,
+                            reassign_infos[si]))
+    with metrics.phase("device_dispatch"):
+        ef_d = (engine.ends_free_collect(ef_handle)
+                if ef_handle is not None else [])
+
+    staged_regions = []
+    all_tasks = []
+    for work, distmatrix, clustmsg, labels, info in region_jobs:
+        pre = None
+        if info is not None:
+            pre, e2e_p, e2e_k, ef_j, ef_k, ef_n, eo, fo = info
+            for key, d, ml in zip(e2e_k, dists[eo : eo + len(e2e_p)],
+                                  pair_maxlen[eo : eo + len(e2e_p)]):
+                pre[key] = d / ml
+            for key, d, nrm in zip(ef_k, ef_d[fo : fo + len(ef_j)], ef_n):
+                pre[key] = d / nrm
+        with metrics.phase("cluster_consensus"), \
+                metrics.phase("cluster_finish"):
+            alleles, tasks = cluster_finish(params, work, distmatrix,
+                                            clustmsg, labels, pre)
+        staged_regions.append((work, clustmsg, alleles))
+        all_tasks.extend(tasks)
+    # one affine cigar launch for every allele consensus in the batch
+    with metrics.phase("cluster_consensus"), \
+            metrics.phase("consensus_batch"):
+        consensus_apply_batched(all_tasks, engine=engine)
+    for work, clustmsg, alleles in staged_regions:
+        emit_region(params, work, clustmsg, alleles, out)
+
+
+def _assemble_batched(params: OtterOpts, bed_regions: List[BED],
+                      bam: BamReader, faidx: Optional[Faidx],
                       reads_only: bool, dist_backend, out: TextIO) -> None:
     """Two-stage pipeline: batch k's kernels run on the card while the host
-    finishes batch k - 1. With -t > 1, region preparation fans out over a
-    thread pool with per-thread BamReader/Faidx instances. Output order
-    stays the BED order."""
-    n_prep = min(params.threads, 8) if params.threads > 1 else 1
-    executor = None
-    thread_handles: List = []
-    if n_prep > 1:
-        import threading
-        from concurrent.futures import ThreadPoolExecutor
-
-        tls = threading.local()
-        hlock = threading.Lock()
-
-        def prep(local_bed: BED):
-            if getattr(tls, "bam", None) is None:
-                tls.bam = BamReader(bam_path, load_index=True)
-                tls.faidx = Faidx(reference) if reference else None
-                with hlock:
-                    thread_handles.append((tls.bam, tls.faidx))
-            buf = io.StringIO()
-            work = prepare_region(params, local_bed, tls.bam, tls.faidx,
-                                  reads_only, buf)
-            return work, buf.getvalue()
-
-        executor = ThreadPoolExecutor(max_workers=n_prep)
-    try:
-        pending: List[RegionWork] = []
-        in_flight = None
-        for c0 in range(0, len(bed_regions), DEFAULT_REGION_BATCH):
-            chunk = bed_regions[c0 : c0 + DEFAULT_REGION_BATCH]
-            with metrics.phase("host_io"):
-                if executor is not None:
-                    results = list(executor.map(prep, chunk))
-                else:
-                    results = []
-                    for local_bed in chunk:
-                        buf = io.StringIO()
-                        results.append((prepare_region(params, local_bed, bam,
-                                                       faidx, reads_only, buf),
-                                        buf.getvalue()))
-            for work, text in results:
-                if text:
-                    out.write(text)
-                metrics.add("regions")
-                if work is not None:
-                    pending.append(work)
-            if len(pending) >= DEFAULT_REGION_BATCH:
-                staged = _dispatch_batch(params, pending, dist_backend)
-                if in_flight is not None:
-                    _finish_batch(params, in_flight, dist_backend, out)
-                in_flight = staged
-                pending = []
-        if pending:
+    finishes batch k - 1. Output order stays the BED order."""
+    pending: List[RegionWork] = []
+    in_flight = None
+    for c0 in range(0, len(bed_regions), DEFAULT_REGION_BATCH):
+        with metrics.phase("host_io"):
+            results = []
+            for local_bed in bed_regions[c0 : c0 + DEFAULT_REGION_BATCH]:
+                buf = io.StringIO()
+                results.append((prepare_region(params, local_bed, bam, faidx,
+                                               reads_only, buf),
+                                buf.getvalue()))
+        for work, text in results:
+            if text:
+                out.write(text)
+            metrics.add("regions")
+            if work is not None:
+                pending.append(work)
+        if len(pending) >= DEFAULT_REGION_BATCH:
             staged = _dispatch_batch(params, pending, dist_backend)
             if in_flight is not None:
                 _finish_batch(params, in_flight, dist_backend, out)
             in_flight = staged
+            pending = []
+    if pending:
+        staged = _dispatch_batch(params, pending, dist_backend)
         if in_flight is not None:
             _finish_batch(params, in_flight, dist_backend, out)
-    finally:
-        if executor is not None:
-            executor.shutdown(wait=True)
-            for rdr, fx in thread_handles:
-                rdr.close()
-                if fx is not None:
-                    fx.close()
+        in_flight = staged
+    if in_flight is not None:
+        _finish_batch(params, in_flight, dist_backend, out)
 
 
 def _make_dist_backend(params: OtterOpts) -> TorchDistBackend:
@@ -226,12 +452,36 @@ def assemble_process(params: OtterOpts, bam_path: str, bed_regions: List[BED],
     faidx = Faidx(reference) if reference else None
     try:
         with metrics.phase("region_total"):
-            _assemble_batched(params, bam_path, bed_regions, bam, faidx,
-                              reference, reads_only, dist_backend, out)
+            _assemble_batched(params, bed_regions, bam, faidx, reads_only,
+                              dist_backend, out)
     finally:
         bam.close()
         if faidx is not None:
             faidx.close()
+
+
+def completed_regions(partial_output_path: str) -> set:
+    """Region ids (chr:start-end) already present in a partial assemble
+    output (SAM ta: tags or FASTA headers) — the restart unit is a region,
+    matching the reference's implicit recovery model (SURVEY.md §5)."""
+    done = set()
+    try:
+        with open(partial_output_path) as fh:
+            for line in fh:
+                if line.startswith("@"):
+                    continue
+                if line.startswith(">"):
+                    parts = line[1:].split("#")
+                    if len(parts) >= 2:
+                        done.add(parts[1])
+                else:
+                    for field in line.rstrip("\n").split("\t")[11:]:
+                        if field.startswith("ta:Z:"):
+                            done.add(field[5:])
+                            break
+    except OSError:
+        pass
+    return done
 
 
 def assemble(bam_path: str, bed: str, reference: str, reads_only: bool,

@@ -95,7 +95,7 @@ def test_port_cpu_byte_identical(fixtures, name, variant):
 
 def test_port_cpu_reads_with_n_bases(tmp_path):
     """Reads with N bases (the fixture of test_e2e_ont.py::
-    test_reads_with_N_bases) take the native C++ distance route, and the
+    test_reads_with_N_bases) take the K7 banded distance route, and the
     port writes otter_tpu --device host's bytes (exact)."""
     rng = random.Random(555)
     ref = make_reference(rng, length=3000, repeat="CAG", repeat_at=1500,
@@ -122,12 +122,13 @@ def test_port_cpu_reads_with_n_bases(tmp_path):
     want = io.StringIO()
     reference_assemble(bam, bed, "", False, _params("host"), out=want)
     assert got.getvalue() == want.getvalue()
-    assert backend.engine.pairs_native > 0
+    assert backend.engine.pairs_k7 > 0
 
 
 def test_cli_runs_without_jax(fixtures, tmp_path):
     """``python -m otter_tpu_torch.cli.main assemble`` in a fresh process
-    writes the host path's bytes and never imports jax (exact)."""
+    writes the host path's bytes and imports neither jax nor any module of
+    the JAX package (exact)."""
     bam, bed, _fa = fixtures["het"]
     code = (
         "import sys\n"
@@ -135,6 +136,8 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
         f"rc = main(['assemble', {bam!r}, '-b', {bed!r}, '-R', 'S1', "
         "'--device', 'cpu'])\n"
         "sys.stderr.write('JAX_LOADED=%s\\n' % ('jax' in sys.modules))\n"
+        "sys.stderr.write('REFERENCE_LOADED=%s\\n' % any(\n"
+        "    m.split('.')[0] == 'otter_tpu' for m in sys.modules))\n"
         "raise SystemExit(rc)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
@@ -142,6 +145,7 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert "JAX_LOADED=False" in res.stderr
+    assert "REFERENCE_LOADED=False" in res.stderr
     assert res.stdout == _run(reference_assemble, fixtures["het"], "host",
                               "sam")
 
@@ -159,3 +163,48 @@ def test_unknown_device_raises(fixtures):
     another path."""
     with pytest.raises(ValueError):
         _run(assemble, fixtures["het"], "host", "sam")
+
+
+def test_synth_loci_equal_bench_fixture(tmp_path):
+    """The port's seeded loci generator writes bench_e2e.build_ont_fixture's
+    BAM, BAI and BED byte for byte when neither option is on (exact)."""
+    sys.path.insert(0, REPO)
+    import bench_e2e
+    from otter_tpu_torch.utils.synth import tandem_repeat_loci
+
+    a, b = tmp_path / "a", tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    want = bench_e2e.build_ont_fixture(str(a), n_regions=2, err=0.002,
+                                       cov=10, expansion=40, region_len=300,
+                                       seed=77, name="smoke")
+    got = tandem_repeat_loci(str(b), n_regions=2, cov=10, err=0.002,
+                             expansion=40, region_len=300, seed=77,
+                             name="smoke")
+    for w, g in ((want[0], got[0]), (want[0] + ".bai", got[0] + ".bai"),
+                 (want[1], got[1])):
+        with open(w, "rb") as fw, open(g, "rb") as fg:
+            assert fw.read() == fg.read()
+
+
+def test_route_coverage_fixture_reaches_every_route(tmp_path):
+    """Non-spanning reads, a 2.4 kb allele and reads with N bases send work
+    down every engine route and through K5; the port's bytes equal
+    otter_tpu --device host's (exact)."""
+    from otter_tpu_torch.utils.synth import tandem_repeat_loci
+
+    bam, bed = tandem_repeat_loci(str(tmp_path), n_regions=1, cov=16,
+                                  err=0.002, expansion=300, region_len=1500,
+                                  seed=78, name="routes", partial=0.3,
+                                  n_bases=2)
+    backend = TorchDistBackend("cpu")
+    got = io.StringIO()
+    assemble(bam, bed, "", False, _params("cpu"), out=got,
+             dist_backend=backend)
+    want = io.StringIO()
+    reference_assemble(bam, bed, "", False, _params("host"), out=want)
+    assert got.getvalue() == want.getvalue()
+    c = backend.engine.counters()
+    for key in ("pairs_k1", "pairs_k3", "pairs_k7", "jobs_k2", "jobs_k4",
+                "jobs_k5"):
+        assert c[key] > 0, key

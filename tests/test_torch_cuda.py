@@ -19,6 +19,10 @@ from otter_tpu.config import OtterOpts
 from otter_tpu.models.assemble import assemble as reference_assemble
 from otter_tpu.native import edit_distance_batch
 from otter_tpu.ops.align_np import edit_distance_ends_free
+from otter_tpu.ops.align_batch import affine_cigars_multi
+from otter_tpu_torch.kernels import affine_tb as K5
+from otter_tpu_torch.kernels import edit_banded as K7
+from otter_tpu_torch.kernels import myers_banded as K34
 from otter_tpu_torch.kernels import myers_pallas as K1
 from otter_tpu_torch.kernels import myers_striped as K2
 from otter_tpu_torch.kernels.edit_engine import EditDistanceEngine
@@ -120,7 +124,7 @@ def test_engine_cuda_matches_cpu(cuda_device):
     cpu = EditDistanceEngine("cpu")
     assert np.array_equal(gpu.distances(pairs), cpu.distances(pairs))
     assert gpu.counters() == cpu.counters()
-    assert gpu.pairs_k2 == 1 and gpu.pairs_native == 1
+    assert gpu.pairs_k3 == 1 and gpu.pairs_k7 == 1
 
 
 @pytest.mark.parametrize("is_fa", [False, True])
@@ -147,3 +151,76 @@ def test_assemble_cuda_byte_identical(cuda_device, tmp_path, is_fa):
         fn(bam, bed, "", False, p, out=out)
         outs.append(out.getvalue())
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("k", [63, 127])
+def test_myers_banded_cuda_matches_plain(cuda_device, k):
+    """K3 and K4 on the card equal their plain versions on every job, above
+    k too, and the numpy DP where <= k (exact)."""
+    rng = random.Random(300 + k)
+    jobs = []
+    for _ in range(200):
+        p = _acgt(rng, rng.randint(1, 3000))
+        tb, te = rng.randint(0, 50), rng.randint(0, 50)
+        jobs.append((p, _acgt(rng, tb) + _mutate(rng, p, rng.random() * 0.1)
+                     + _acgt(rng, te), tb, te))
+    args = K2.oriented_inputs([j[:2] for j in jobs], [j[2] for j in jobs],
+                              [j[3] for j in jobs], cuda_device)
+    pool, ip, it, nl, ml, tb, te, nw, tl = args
+    zero = torch.zeros_like(nl)
+    got3 = K34.myers_banded(pool, ip, it, nl, ml, k, nw, tl)
+    assert torch.equal(got3, K34.myers_banded_torch(pool, ip, it, nl, ml,
+                                                    zero, zero, k, nw, tl))
+    got4 = K34.myers_banded_ef(pool, ip, it, nl, ml, tb, te, k, nw, tl)
+    assert torch.equal(got4, K34.myers_banded_torch(pool, ip, it, nl, ml,
+                                                    tb, te, k, nw, tl))
+    for (p, t, b, e), g in zip(jobs, got4.cpu().tolist()):
+        d = edit_distance_ends_free(p, t, 0, 0, b, e)
+        assert g >= d and (d > k or g == d)
+
+
+@pytest.mark.parametrize("k", [31, 255])
+def test_edit_banded_cuda_matches_plain(cuda_device, k):
+    """K7 on the card equals its plain version on every pair, INF lanes
+    included, and the native distance where <= k (exact)."""
+    rng = random.Random(700 + k)
+    pairs = []
+    for _ in range(200):
+        s = "".join(rng.choice("ACGTN") for _ in range(rng.randint(1, 1500)))
+        pairs.append((s, _mutate(rng, s, rng.random() * 0.1)))
+    a, bpad, mn = K7.pack_banded(pairs, k)
+    args = [_t(x, cuda_device) for x in (a, bpad, mn)]
+    got = K7.edit_banded(*args, k)
+    assert torch.equal(got, K7.edit_banded_torch(*args, k))
+    want, _cells = edit_distance_batch(pairs, 8)
+    for g, d in zip(got.cpu().tolist(), want.tolist()):
+        assert d > k or g == d
+
+
+@pytest.mark.parametrize("k", [63, 255])
+def test_affine_tb_cuda_matches_plain(cuda_device, k):
+    """K5 and K6 on the card write their plain version's walks and end
+    cells, and the cigars equal the host ladder's (exact)."""
+    rng = random.Random(500 + k)
+    jobs = []
+    for i in range(150):
+        rep = _acgt(rng, rng.randint(100, 1500))
+        mem = _mutate(rng, rep, rng.choice([0.002, 0.02, 0.08]))
+        cut = rng.randint(0, len(mem) // 4)
+        jobs.append([(mem, rep, 0, 0, 0, 0), (mem[cut:], rep, 0, 0, cut, 0),
+                     (rep, mem[cut:], cut, 0, 0, 0)][i % 3])
+    a, bpad, mn = K5.pack_affine_jobs(jobs, 2048, k)
+    tw = K5._t_words(2048, k)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (a, bpad, mn)]
+    ops, end = K5.affine_tb(*args, k, tw)
+    ops_p, end_p = K5.affine_tb_torch(*args, k, tw)
+    assert torch.equal(ops, ops_p) and torch.equal(end, end_p)
+    before = K5.affine_tb_ckpt_cuda.launches
+    ops_c, end_c = K5.affine_tb_ckpt(*args, k, tw)
+    assert K5.affine_tb_ckpt_cuda.launches == before + 1
+    assert torch.equal(ops_c, ops_p) and torch.equal(end_c, end_p)
+    cigs, failed = K5.affine_cigars_tb(jobs, cuda_device)
+    want = affine_cigars_multi(jobs)
+    assert len(failed) < len(jobs) // 2
+    for i in set(range(len(jobs))) - set(failed):
+        assert cigs[i] == want[i]

@@ -37,8 +37,9 @@ def _mutate(rng, s, rate):
 
 
 def _route_pairs(rng):
-    """Pairs for every distance route: K1 buckets, K2 (shorter side past
-    2048 bp), native (non-ACGT), and the equal / empty shortcuts."""
+    """Pairs for every distance route: K1 buckets, K3 (shorter side past
+    2048 bp, within a band), K2 (past 2048 bp, no band fits), K7
+    (non-ACGT), and the equal / empty shortcuts."""
     pairs = []
     for lo, hi in ((1, 128), (129, 256), (257, 400)):
         for _ in range(6):
@@ -46,6 +47,8 @@ def _route_pairs(rng):
             pairs.append((s, _mutate(rng, s, 0.05) or "A"))
     long_a = _acgt(rng, 2100)
     pairs.append((long_a, long_a + _acgt(rng, 650)))
+    long_b = _acgt(rng, 2300)
+    pairs.append((long_b, _mutate(rng, long_b, 0.01)))
     pairs.append(("ACGTNACGT" * 5, "ACGTACGT" * 6))
     s = _acgt(rng, 50)
     pairs += [(s, s), ("", "ACGT"), ("ACG", "")]
@@ -64,7 +67,8 @@ def test_distances_match_jax_engine_and_oracle():
     assert got.tolist() == want
     assert np.array_equal(got, JaxEngine(mode="pallas",
                                          interpret=True).distances(pairs))
-    assert (eng.pairs_k1, eng.pairs_k2, eng.pairs_native) == (18, 1, 1)
+    assert (eng.pairs_k1, eng.pairs_k3, eng.pairs_k2, eng.pairs_k7) == (
+        18, 1, 1, 1)
     assert eng.mode == "torch-cpu"
 
 
@@ -84,10 +88,10 @@ def test_distances_indexed_all_vs_all():
 
 
 def test_ends_free_match_jax_engine_and_oracle():
-    """ends_free() routes one-sided ACGT jobs to K2, zero-free jobs to the
-    distance path and the rest (two-sided, non-ACGT) to the host DP; the
-    results equal the JAX engine in interpret mode and the numpy DP
-    (exact)."""
+    """ends_free() routes one-sided ACGT jobs to K2 (K4 first when the
+    free-less side is past 2048 bp), zero-free jobs to the distance path
+    and the rest (two-sided, non-ACGT) to the host DP; the results equal
+    the JAX engine in interpret mode and the numpy DP (exact)."""
     rng = random.Random(83)
     jobs = []
     for k in range(8):
@@ -100,12 +104,15 @@ def test_ends_free_match_jax_engine_and_oracle():
     jobs.append(("ACGTTGCA" * 4, "ACGTTGCA" * 5, 1, 0, 0, 2))
     jobs.append(("ACGNNACG" * 3, "ACGTACGT" * 3, 0, 0, 2, 0))
     jobs.append(("ACGT" * 5, "ACGT" * 5, 0, 0, 3, 0))
+    long_p = _acgt(rng, 2200)
+    jobs.append((long_p, _mutate(rng, long_p, 0.01) + _acgt(rng, 40),
+                 0, 0, 0, 40))
     eng = EditDistanceEngine("cpu")
     got = eng.ends_free(jobs)
     assert got.tolist() == [edit_distance_ends_free(*j) for j in jobs]
     assert np.array_equal(got, JaxEngine(mode="pallas",
                                          interpret=True).ends_free(jobs))
-    assert (eng.jobs_k2, eng.jobs_host) == (6, 2)
+    assert (eng.jobs_k2, eng.jobs_k4, eng.jobs_host) == (6, 1, 2)
     assert eng.pairs_k1 == 2
 
 
