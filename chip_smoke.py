@@ -15,7 +15,9 @@ exits non-zero:
    equals its plain PyTorch version on the card, exactly, and agrees with
    the package's host oracles (native C++ distances, the numpy ends-free DP,
    the native affine cigar ladder); then the time of the kernel and of the
-   plain version on one workload of the shape the main path gives it;
+   plain version on one workload of the shape the main path gives it, its
+   band (or DP) Gcells/s and its bound; K5 and K6 are also swept over every
+   band they have an instance for (k = 63, 127, 255, 511), exact;
 4. small main path: the port's ``assemble`` on the card writes the same SAM
    and FASTA bytes as on an exact host engine (native C++ distances, host
    ends-free DP, native affine ladder);
@@ -29,9 +31,22 @@ exits non-zero:
    after them; each must have launched.
 
 The line before the last is a JSON object with each kernel's launches in
-phase 5, its largest disagreement with its plain version and its times; the
-last line is ``{"ok": true, "device": {...}}``. Every input is made from a
-seed; nothing is read from the network.
+phase 5, its largest disagreement with its plain version, its times and its
+bound; the last line is ``{"ok": true, "device": {...}}``. Every input is
+made from a seed; nothing is read from the network.
+
+    python3 chip_smoke.py --profile
+
+runs phases 1-2 and then cell hifi-tr-1.5k three times untimed by the
+profiler and once under ``torch.profiler``: the device's busy time and
+share of the wall, and the device time of each kernel.
+
+A kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its int32 operations over the card's
+int32 rate (132 SMs x 64 lanes x the SM clock ``nvidia-smi`` reports as
+``clocks.max.sm``), with the operations per DP cell in ``OPS_PER_CELL``,
+counted from the sources; phase 2 prints the compiled SASS counts beside
+them.
 """
 
 from __future__ import annotations
@@ -39,6 +54,8 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -66,6 +83,19 @@ KERNELS = {
     "affine_tb_ckpt": ("otter_tpu_torch/csrc/affine_tb.cu",
                        "otter_tpu/kernels/affine_pallas.py:395"),
 }
+
+
+# int32 operations per DP cell, counted from the sources: K1-K4 advance 64
+# cells with ~36 int32 operations (myers.cu's note), K7 ~10 per band cell,
+# K5 / K6 ~28 per band cell (the DP once; K6's recompute is not counted)
+OPS_PER_CELL = {"myers_pool": 36 / 64, "myers_striped": 36 / 64,
+                "myers_banded": 36 / 64, "myers_banded_ef": 36 / 64,
+                "edit_banded": 10.0, "affine_tb": 28.0,
+                "affine_tb_ckpt": 28.0}
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES = 132 * 64
+# set by phase 1: the SM clock (Hz)
+CARD = {"sm_hz": None}
 
 
 def log(msg: str) -> None:
@@ -131,14 +161,32 @@ def with_n(rs: np.random.Generator, s: str, count: int) -> str:
     return chars.decode()
 
 
-def report(name, n, cells, kern, plain, ms, plain_ms, err) -> dict:
-    """Print one kernel's parity and time line; returns its JSON fields."""
-    rate = (f" ({cells / ms / 1e6:.2f} Gcells/s kernel, "
-            f"{cells / plain_ms / 1e6:.2f} Gcells/s plain)" if cells else "")
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(key: str, cells: float, moved: int):
+    """(bound ms, what bounds it) for ``cells`` DP cells and ``moved``
+    bytes of inputs and outputs."""
+    t_ops = cells * OPS_PER_CELL[key] / (INT32_LANES * CARD["sm_hz"]) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def report(key, name, n, cells, kern, plain, ms, plain_ms, err,
+           moved) -> dict:
+    """Print one kernel's parity, time and bound line; returns its JSON
+    fields. No PyTorch call computes any of these functions, so there is
+    no library time."""
+    bound_ms, bound_by = bound(key, cells, moved)
     log(f"{name}: {n} items, kernel == plain: {kern}, max |diff| {err} "
         f"(tolerance 0); oracle agreement: {plain}; time on the timing set: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{rate}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({cells / ms / 1e6:.2f}"
+        f" Gcells/s kernel, {cells / plain_ms / 1e6:.2f} Gcells/s plain); "
+        f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.2f}% "
+        f"of it; library call: none")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def check(ok: bool, what: str) -> None:
@@ -166,6 +214,13 @@ def phase_environment() -> str:
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    CARD["sm_hz"] = float(clk.stdout.strip().splitlines()[0]) * 1e6
+    log(f"SM clock max {CARD['sm_hz'] / 1e6:.0f} MHz: int32 rate "
+        f"{INT32_LANES * CARD['sm_hz'] / 1e12:.2f} Tops/s")
     log(f"torch device: {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
     return card
@@ -184,9 +239,55 @@ def phase_build() -> None:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    sass_loops(path)
     t0 = time.perf_counter()
     native.get_lib()
     log(f"host library built in {time.perf_counter() - t0:.2f} s")
+
+
+def sass_loops(lib: str) -> None:
+    """Per kernel function of the library, by ``cuobjdump -sass``: its
+    SASS instructions and those of its longest loop (the span of a
+    backward branch before the function's last EXIT; the out-of-line
+    blocks after it, such as the shuffles' divergence fallbacks, are
+    cold). In K5 that loop is the row loop, one row per iteration, so over
+    the L lanes a thread holds it gives SASS instructions per cell."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("  SASS: cuobjdump not found")
+        return
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300).stdout
+    for fn_name, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function :|\Z)",
+                                    out, flags=re.S):
+        labels, pending, ins = {}, [], []
+        for line in body.splitlines():
+            lab = re.match(r"\s*\.?(L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*)", line)
+            if m:
+                at = int(m.group(1), 16)
+                labels.update((name, at) for name in pending)
+                pending = []
+                ins.append((at, m.group(2)))
+        last_exit = max((at for at, text in ins if "EXIT" in text),
+                        default=0)
+        longest = 0
+        for at, text in ins:
+            br = re.search(r"\bBRA(?:\.\w+)*\s+(?:`\(\.?(L_x_\d+)\)|"
+                           r"(0x[0-9a-f]+))", text)
+            if br and at < last_exit:
+                to = labels.get(br.group(1)) if br.group(1) \
+                    else int(br.group(2), 16)
+                if to is not None and to <= at:
+                    longest = max(longest, (at - to) // 16 + 1)
+        k5 = re.search(r"affine_tb_kernelILi(\d+)E", fn_name)
+        per_cell = (f" ({longest / int(k5.group(1)):.1f} per cell over "
+                    f"L = {k5.group(1)} lanes)" if k5 else "")
+        log(f"  SASS {fn_name}: {len(ins)} instructions, longest loop "
+            f"{longest}{per_cell}")
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +373,9 @@ def kernel_k1(dev, rs) -> dict:
     plain_ms = time_ms(lambda: K1.myers_pool_torch(*a), 1)
     check(bool(torch.equal(K1.myers_pool(*a), K1.myers_pool_torch(*a))),
           "K1 disagrees with its plain version on the timing set")
-    return report("K1 myers_pool", len(pairs), cells, err == 0, oracle, ms,
-                  plain_ms, err)
+    return report("myers_pool", "K1 myers_pool", len(pairs), cells, err == 0,
+                  oracle, ms, plain_ms, err,
+                  nbytes(pool, ip, it, nl, ml) + 4 * len(ip))
 
 
 def one_sided_jobs(rs, n, lo, hi):
@@ -339,8 +441,10 @@ def kernel_k2(dev, rs) -> dict:
     plain_ms = time_ms(lambda: K2.myers_striped_torch(*a), 1)
     check(bool(torch.equal(K2.myers_striped(*a), K2.myers_striped_torch(*a))),
           "K2 disagrees with its plain version on the timing set")
-    return report("K2 myers_striped", len(jobs), cells, err == 0, oracle, ms,
-                  plain_ms, err)
+    moved = nbytes(*(x for x in a if isinstance(x, torch.Tensor)))
+    return report("myers_striped", "K2 myers_striped", len(jobs), cells,
+                  err == 0, oracle, ms, plain_ms, err,
+                  moved + 4 * len(tjobs))
 
 
 def kernel_k3(dev, rs) -> dict:
@@ -386,8 +490,9 @@ def kernel_k3(dev, rs) -> dict:
         K3.myers_banded(pool, ip, it, nl, ml, 63, nw, tl),
         K3.myers_banded_torch(pool, ip, it, nl, ml, zero, zero, 63, nw, tl))),
         "K3 disagrees with its plain version on the timing set")
-    return report("K3 myers_banded (k 63, 255; band cells)", len(pairs),
-                  cells, err == 0, oracle, ms, plain_ms, err)
+    return report("myers_banded", "K3 myers_banded (k 63, 255; band cells)",
+                  len(pairs), cells, err == 0, oracle, ms, plain_ms, err,
+                  nbytes(pool, ip, it, nl, ml) + 4 * len(ip))
 
 
 def kernel_k4(dev, rs) -> dict:
@@ -434,8 +539,10 @@ def kernel_k4(dev, rs) -> dict:
         K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, 63, nw, tl),
         K4.myers_banded_torch(pool, ip, it, nl, ml, tb, te, 63, nw, tl))),
         "K4 disagrees with its plain version on the timing set")
-    return report("K4 myers_banded_ef (k 63, 255; band cells)", len(jobs),
-                  cells, err == 0, oracle, ms, plain_ms, err)
+    return report("myers_banded_ef",
+                  "K4 myers_banded_ef (k 63, 255; band cells)", len(jobs),
+                  cells, err == 0, oracle, ms, plain_ms, err,
+                  nbytes(pool, ip, it, nl, ml, tb, te) + 4 * len(ip))
 
 
 def kernel_k7(dev, rs) -> dict:
@@ -473,8 +580,9 @@ def kernel_k7(dev, rs) -> dict:
     check(bool(torch.equal(K7.edit_banded(*a, 63),
                            K7.edit_banded_torch(*a, 63))),
           "K7 disagrees with its plain version on the timing set")
-    return report("K7 edit_banded (k 63, 511; band cells)", len(pairs), cells,
-                  err == 0, oracle, ms, plain_ms, err)
+    return report("edit_banded", "K7 edit_banded (k 63, 511; band cells)",
+                  len(pairs), cells, err == 0, oracle, ms, plain_ms, err,
+                  nbytes(*a) + 4 * len(tpairs))
 
 
 def consensus_jobs(rs, n, lo, hi, err):
@@ -529,8 +637,9 @@ def kernel_k5(dev, rs) -> dict:
     o2, e2 = K5.affine_tb_torch(*a, 63, tw)
     check(bool(torch.equal(o1, o2) and torch.equal(e1, e2)),
           "K5 disagrees with its plain version on the timing set")
-    return report("K5 affine_tb (k 63, 255; band cells)", len(jobs), cells,
-                  err == 0 and same_ops, oracle, ms, plain_ms, err)
+    return report("affine_tb", "K5 affine_tb (k 63, 255; band cells)",
+                  len(jobs), cells, err == 0 and same_ops, oracle, ms,
+                  plain_ms, err, nbytes(*a, o1, e1))
 
 
 def kernel_k6(dev, rs) -> dict:
@@ -571,20 +680,83 @@ def kernel_k6(dev, rs) -> dict:
     o2, e2 = K6.affine_tb_torch(*a, 127, tw)
     check(bool(torch.equal(o1, o2) and torch.equal(e1, e2)),
           "K6 disagrees with its plain version on the timing set")
-    return report("K6 affine_tb_ckpt (k 63, 127; band cells)", len(jobs),
-                  cells, err == 0 and same_ops, oracle, ms, plain_ms, err)
+    # K5 on the same members: the two kernels at the K5 / K6 boundary
+    # (4096 rows at k = 127; CKPT_CELLS sends it to K6)
+    k5_ms = time_ms(lambda: K6.affine_tb(*a, 127, tw), 3)
+    o5, e5 = K6.affine_tb(*a, 127, tw)
+    check(bool(torch.equal(o5, o2) and torch.equal(e5, e2)),
+          "K5 disagrees with its plain version on the K6 timing set")
+    log(f"K5 on the K6 timing set (4096 rows, k 127): {k5_ms:.3f} ms "
+        f"({cells / k5_ms / 1e6:.2f} Gcells/s), K6 {ms:.3f} ms")
+    return report("affine_tb_ckpt",
+                  "K6 affine_tb_ckpt (k 63, 127; band cells)", len(jobs),
+                  cells, err == 0 and same_ops, oracle, ms, plain_ms, err,
+                  nbytes(*a, o1, e1))
+
+
+def affine_sweep(dev) -> None:
+    """K5 and K6 at every band they have an instance for, exact against
+    the plain version: members of 30 bp to 2 kb in one launch, unrelated
+    members (not walked), pattern-end-free members, members with a long gap,
+    and a launch of one member; with each kernel's band Gcells/s."""
+    import torch
+
+    from otter_tpu_torch.kernels import affine_tb as K
+
+    rs = np.random.default_rng(11)
+    for k in K.BANDS:
+        jobs = consensus_jobs(rs, 150, 30, 2000, 0.01) + \
+            consensus_jobs(rs, 30, 100, 1000, 0.08)
+        for _ in range(10):
+            s = rand_acgt(rs, int(rs.integers(200, 1200)))
+            jobs.append((s, rand_acgt(rs, len(s)), 0, 0, 0, 0))
+        for _ in range(10):
+            s = rand_acgt(rs, int(rs.integers(200, 1200)))
+            tail = rand_acgt(rs, int(rs.integers(1, 40)))
+            jobs.append((mutate(rs, s, 0.01) + tail, s, 0, len(tail), 0, 0))
+        for q in range(20):  # a long gap in the text or in the pattern
+            s = rand_acgt(rs, int(rs.integers(200, 1200)))
+            x, g = int(rs.integers(0, len(s))), int(rs.integers(8, k // 2))
+            mem = s[:x] + s[x + g:] if q % 2 else \
+                s[:x] + rand_acgt(rs, g) + s[x:]
+            jobs.append((mutate(rs, mem, 0.005), s, 0, 0, 0, 0))
+        cells = float(sum(len(j[0]) for j in jobs) * 2 * (k + 1))
+        for name, sel in (("all", jobs), ("one member", jobs[:1])):
+            rows = 2048
+            tw = K._t_words(rows, k)
+            a = [torch.from_numpy(x).to(dev)
+                 for x in K.pack_affine_jobs(sel, rows, k)]
+            ops_p, end_p = K.affine_tb_torch(*a, k, tw)
+            same = True
+            for fn in (K.affine_tb, K.affine_tb_ckpt):
+                ops, end = fn(*a, k, tw)
+                same &= bool(torch.equal(ops, ops_p)
+                             and torch.equal(end, end_p))
+            check(same, f"K5 / K6 disagree with the plain version at k {k} "
+                  f"({name})")
+            if name == "all":
+                walked = int(end_p[:, 3].sum())
+                ms5 = time_ms(lambda: K.affine_tb(*a, k, tw), 2)
+                ms6 = time_ms(lambda: K.affine_tb_ckpt(*a, k, tw), 2)
+                log(f"K5 / K6 sweep k {k}: {len(sel)} members ({walked} "
+                    f"walked), both == plain (max |diff| 0); K5 {ms5:.3f} ms "
+                    f"({cells / ms5 / 1e6:.2f} band Gcells/s), K6 "
+                    f"{ms6:.3f} ms ({cells / ms6 / 1e6:.2f} band Gcells/s)")
+        log(f"K5 / K6 sweep k {k}: a launch of one member == plain")
 
 
 def phase_kernels(dev) -> dict:
     log("== phase 3: kernels against their plain versions and oracles")
     rs = np.random.default_rng(3)
-    return {"myers_pool": kernel_k1(dev, rs),
-            "myers_striped": kernel_k2(dev, rs),
-            "myers_banded": kernel_k3(dev, rs),
-            "myers_banded_ef": kernel_k4(dev, rs),
-            "edit_banded": kernel_k7(dev, rs),
-            "affine_tb": kernel_k5(dev, rs),
-            "affine_tb_ckpt": kernel_k6(dev, rs)}
+    out = {"myers_pool": kernel_k1(dev, rs),
+           "myers_striped": kernel_k2(dev, rs),
+           "myers_banded": kernel_k3(dev, rs),
+           "myers_banded_ef": kernel_k4(dev, rs),
+           "edit_banded": kernel_k7(dev, rs),
+           "affine_tb": kernel_k5(dev, rs),
+           "affine_tb_ckpt": kernel_k6(dev, rs)}
+    affine_sweep(dev)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -743,12 +915,63 @@ def phase_full(tmp: str) -> dict:
             ("route coverage, 7.5 kb allele (parity only)", bam_c, bed_c, 2,
              False)):
         c = run_cell(name, bam, bed, n, rates)
+        cell = {}
         for k, fn in wrappers.items():  # the host run launches nothing
+            cell[k] = fn.launches - launches[k]
             launches[k] = fn.launches
+        log(f"{name}: kernel launches {json.dumps(cell)}")
     log(f"kernel launches in phase 5: {json.dumps(launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
     return launches
+
+
+def phase_profile(tmp: str) -> None:
+    """Cell hifi-tr-1.5k three times untraced, then once under
+    torch.profiler: wall, device busy time (the union of kernel and copy
+    intervals) and its share of the wall, device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.utils.synth import tandem_repeat_loci
+
+    log("== profile: cell hifi-tr-1.5k under torch.profiler")
+    bam, bed = tandem_repeat_loci(tmp, n_regions=32, cov=100, err=0.002,
+                                  expansion=100, region_len=1500, seed=77,
+                                  name="smoke")
+
+    def once() -> float:
+        t0 = time.perf_counter()
+        run(bam, bed, TorchDistBackend("cuda"))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for r in range(3):
+        log(f"untraced run {r + 1}: wall {once():.3f} s")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = once()
+    spans, per = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        n, us = per.get(e.name, (0, 0.0))
+        per[e.name] = (n + 1, us + (t1 - t0))
+    busy, reach = 0.0, None
+    for t0, t1 in sorted(spans):
+        if reach is None or t0 > reach:
+            busy += t1 - t0
+            reach = t1
+        elif t1 > reach:
+            busy += t1 - reach
+            reach = t1
+    log(f"traced run: wall {wall:.3f} s, device busy {busy / 1e6:.4f} s, "
+        f"busy share {100 * busy / 1e6 / wall:.2f}%")
+    for name, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"  {us / 1e3:.3f} ms in {n} launches: {name[:100]}")
 
 
 def main() -> int:
@@ -757,6 +980,10 @@ def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
     phase_build()
+    if "--profile" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_profile(tmp)
+        return 0
     timings = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)

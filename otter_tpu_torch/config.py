@@ -53,10 +53,8 @@ class OtterOpts:
     is_debug: bool = False
     read_group: str = ""
     max_cosdis: float = 0.025
-    # TPU execution knobs (no reference analog)
-    device: str = "auto"       # auto|tpu|cpu|host|mesh ("host" = pure numpy
-                               # path; "mesh" = jnp dispatches pair-sharded
-                               # over every attached device)
+    # execution knobs (no reference analog)
+    device: str = "cuda"       # cuda|cpu: where the kernels run
     precise_kde: bool = True   # float64 host KDE for bit-parity
 
     def init_offset(self, tmp: str) -> None:

@@ -2,9 +2,10 @@
 walked on the device, for the consensus member alignments.
 
 Counterpart of ``otter_tpu/kernels/affine_pallas.py``: ``affine_tb_pallas``
-(K5, every traceback bit kept) and ``affine_tb_ckpt_pallas`` (K6, H/F
-checkpoints every 256 rows, bits recomputed block by block during the
-walk; see ``csrc/affine_tb.cu``). Both take the arrays
+(K5, every traceback code kept) and ``affine_tb_ckpt_pallas`` (K6, H/F
+checkpoints every 256 rows, codes recomputed block by block during the
+walk); on the card both run one warp per member (see
+``csrc/affine_tb.cu``) for k in ``BANDS``. Both take the arrays
 ``pack_affine_jobs`` builds (the JAX package's layout: int8 codes, ``mn``
 (B, 8) with the band-validity cap) and return ``(ops, end)``: (B, t_words)
 int32 walk codes, 16 per word, and (B, 4) int32 (score, end i, end j,
@@ -30,9 +31,10 @@ from ..ops.align_np import (GAP_EXT, GAP_OPEN, MISMATCH, _codes,
 from .myers_pallas import data_ptr
 
 K_DEV, K_WIDE, K_ONT, K_XWIDE = 63, 127, 255, 511
+BANDS = (K_DEV, K_WIDE, K_ONT, K_XWIDE)   # the kernels' template instances
 LP_MAX = 16384           # pattern rows handled on the device
 LT_MAX = 16384           # text length handled on the device
-SCRATCH_BYTES = 1 << 31  # traceback bytes one launch may hold
+SCRATCH_BYTES = 1 << 31  # device scratch one launch may hold
 CKPT_CELLS = 1 << 20     # rows * W from which a bucket takes K6
 CKPT_BLOCK = 256         # K6's checkpoint interval, in rows
 _INF = 1 << 28
@@ -215,31 +217,48 @@ def affine_tb_torch(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
     return _to_int32(ops), end.to(torch.int32)
 
 
+def scratch_bytes_per_member(max_rows: int, k: int, ckpt: bool) -> int:
+    """Device scratch one member takes in a launch: K5 keeps every row's
+    traceback codes (4 bits per cell, W / 2 bytes a row), K6 the H and F
+    rows (2 W int32) of every 256th row; K6's block of codes lives in shared
+    memory."""
+    W = 2 * (k + 1)
+    if ckpt:
+        return max(1, -(-max_rows // CKPT_BLOCK)) * 2 * W * 4
+    return max_rows * W // 2
+
+
+def _check_band(k: int) -> None:
+    if k not in BANDS:
+        raise ValueError(f"k must be one of {BANDS}: the kernels have no "
+                         f"instance for k = {k}")
+
+
 def affine_tb_cuda(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
                    k: int, t_words: int):
     """K5 on the card (``csrc/affine_tb.cu``): one launch on the current
-    stream, no synchronisation. Raises on bad inputs or a refused launch."""
+    stream, no synchronisation, one warp per member, the traceback codes
+    in device memory. Raises on bad inputs or a refused launch."""
     from . import _build
 
     _check(a, bpad, mn, k, t_words)
+    _check_band(k)
     if not a.is_cuda:
         raise ValueError("affine_tb_cuda takes CUDA tensors")
     B, La = a.shape
-    W = 2 * (k + 1)
     ops = torch.empty((B, t_words), dtype=torch.int32, device=a.device)
     end = torch.empty((B, 4), dtype=torch.int32, device=a.device)
     if B == 0:
         return ops, end
-    hf = torch.empty(2 * W * B, dtype=torch.int32, device=a.device)
-    bits = torch.empty(max(La, 1) * W * B, dtype=torch.uint8,
-                       device=a.device)
+    bits = torch.empty(B * scratch_bytes_per_member(La, k, False),
+                       dtype=torch.uint8, device=a.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = lib.otter_affine_tb(data_ptr(a), La, data_ptr(bpad),
                                   bpad.shape[1], data_ptr(mn), k, t_words,
                                   data_ptr(ops), data_ptr(end), B,
-                                  data_ptr(hf), data_ptr(bits), stream)
+                                  data_ptr(bits), stream)
     _build.check(lib, err, "affine_tb_cuda")
     affine_tb_cuda.launches += 1
     return ops, end
@@ -251,33 +270,28 @@ affine_tb_cuda.launches = 0
 def affine_tb_ckpt_cuda(a: torch.Tensor, bpad: torch.Tensor,
                         mn: torch.Tensor, k: int, t_words: int):
     """K6 on the card (``csrc/affine_tb.cu``): one launch on the current
-    stream, no synchronisation, K5's results in 256 W bytes of traceback
-    bits and ceil(La / 256) H/F checkpoints per member. Raises on bad
-    inputs or a refused launch."""
+    stream, no synchronisation, K5's results from H/F checkpoints every 256
+    rows (the walk recomputes a block of codes at a time in shared
+    memory). Raises on bad inputs or a refused launch."""
     from . import _build
 
     _check(a, bpad, mn, k, t_words)
+    _check_band(k)
     if not a.is_cuda:
         raise ValueError("affine_tb_ckpt_cuda takes CUDA tensors")
     B, La = a.shape
-    W = 2 * (k + 1)
     ops = torch.empty((B, t_words), dtype=torch.int32, device=a.device)
     end = torch.empty((B, 4), dtype=torch.int32, device=a.device)
     if B == 0:
         return ops, end
-    hf = torch.empty(2 * W * B, dtype=torch.int32, device=a.device)
-    bits = torch.empty(CKPT_BLOCK * W * B, dtype=torch.uint8,
-                       device=a.device)
-    n_ckpt = max(1, -(-La // CKPT_BLOCK))
-    ckpt = torch.empty(n_ckpt * 2 * W * B, dtype=torch.int32,
-                       device=a.device)
+    ckpt = torch.empty(B * scratch_bytes_per_member(La, k, True) // 4,
+                       dtype=torch.int32, device=a.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = lib.otter_affine_tb_ckpt(
             data_ptr(a), La, data_ptr(bpad), bpad.shape[1], data_ptr(mn), k,
-            t_words, data_ptr(ops), data_ptr(end), B, data_ptr(hf),
-            data_ptr(bits), data_ptr(ckpt), stream)
+            t_words, data_ptr(ops), data_ptr(end), B, data_ptr(ckpt), stream)
     _build.check(lib, err, "affine_tb_ckpt_cuda")
     affine_tb_ckpt_cuda.launches += 1
     return ops, end
@@ -420,12 +434,11 @@ def affine_cigars_tb(jobs: List[Tuple[str, str, int, int, int, int]],
         for (k, max_rows), idxs in sorted(buckets.items()):
             t_words = _t_words(max_rows, k)
             W = 2 * (k + 1)
-            # K6 once a member's traceback bits would reach CKPT_CELLS bytes
+            # K6 once a member's rows * W reach CKPT_CELLS
             use_ckpt = max_rows * W >= CKPT_CELLS
             run = affine_tb_ckpt if use_ckpt else affine_tb
-            per_member = (CKPT_BLOCK + 8 * (max_rows // CKPT_BLOCK + 1)) * W \
-                if use_ckpt else max_rows * W
-            chunk = max(1, SCRATCH_BYTES // per_member)
+            chunk = max(1, SCRATCH_BYTES // scratch_bytes_per_member(
+                max_rows, k, use_ckpt))
             for c0 in range(0, len(idxs), chunk):
                 sub_idx = idxs[c0 : c0 + chunk]
                 sub = [jobs[i] for i in sub_idx]

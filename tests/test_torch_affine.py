@@ -16,10 +16,15 @@ from otter_tpu.kernels.affine_pallas import affine_tb_pallas
 from otter_tpu.kernels.affine_pallas import \
     pack_affine_jobs as jax_pack_affine_jobs
 from otter_tpu.ops.align_batch import affine_cigars_multi
-from otter_tpu_torch.kernels.affine_tb import (_t_words, _unpack_codes,
+from otter_tpu_torch.kernels.affine_tb import (BANDS, _t_words,
+                                               _unpack_codes,
                                                affine_cigars_tb, affine_tb,
+                                               affine_tb_ckpt_cuda,
+                                               affine_tb_cuda,
                                                affine_tb_torch,
-                                               pack_affine_jobs)
+                                               pack_affine_jobs,
+                                               scratch_bytes_per_member)
+from test_torch_cuda import last_column_tie_jobs
 
 CPU = torch.device("cpu")
 
@@ -147,3 +152,79 @@ def test_k6_matches_tpu_ckpt_kernel_interpret():
     for b in range(len(jobs)):
         assert np.array_equal(c_port[b][c_port[b] != 0],
                               c_jax[b][c_jax[b] != 0])
+
+
+def _codes_equal(o_jax, ops, tw, n):
+    c_jax = _unpack_codes(np.asarray(o_jax), tw)
+    c_port = _unpack_codes(ops.numpy(), tw)
+    return all(np.array_equal(c_port[b][c_port[b] != 0],
+                              c_jax[b][c_jax[b] != 0]) for b in range(n))
+
+
+def test_k6_matches_tpu_ckpt_kernel_interpret_k255():
+    """At k = 255 (W = 512 lanes) the TPU's checkpointed kernel
+    (interpret mode) and the port's plain version agree on end cells,
+    walked flags and walk codes over members of two 256-row blocks
+    (exact)."""
+    from otter_tpu.kernels.affine_pallas import affine_tb_ckpt_pallas
+
+    rng = random.Random(255)
+    jobs = _jobs(rng, 6, lo=280, hi=480)
+    k, max_rows = 255, 512
+    tw = jax_t_words(max_rows, k)
+    a, bpad, mn = jax_pack_affine_jobs(jobs, max_rows, k)
+    o_jax, e_jax = affine_tb_ckpt_pallas(a, bpad, mn, k, max_rows, tw,
+                                         interpret=True)
+    ops, end = affine_tb_torch(torch.from_numpy(a), torch.from_numpy(bpad),
+                               torch.from_numpy(mn), k, tw)
+    assert np.array_equal(end.numpy(), np.asarray(e_jax)[:, :4])
+    assert end[: len(jobs), 3].sum() >= len(jobs) - 1
+    assert _codes_equal(o_jax, ops, tw, len(jobs))
+
+
+def test_k5_last_column_ties_match_tpu_kernel_interpret():
+    """Members whose end cell lies on the last column, with the smallest
+    score reached at two or more rows: the TPU kernel (interpret mode) and
+    the plain version pick the same (largest) row and walk alike (exact)."""
+    jobs = last_column_tie_jobs(random.Random(9), 6)
+    k, max_rows = 63, 256
+    tw = jax_t_words(max_rows, k)
+    a, bpad, mn = jax_pack_affine_jobs(jobs, max_rows, k)
+    o_jax, e_jax = affine_tb_pallas(a, bpad, mn, k, max_rows, tw,
+                                    interpret=True)
+    ops, end = affine_tb_torch(torch.from_numpy(a), torch.from_numpy(bpad),
+                               torch.from_numpy(mn), k, tw)
+    end = end.numpy()[: len(jobs)]
+    assert np.array_equal(end, np.asarray(e_jax)[: len(jobs), :4])
+    assert np.all(end[:, 1] < [len(j[0]) for j in jobs])   # i < m
+    assert np.all(end[:, 2] == [len(j[1]) for j in jobs])  # j == n
+    assert _codes_equal(o_jax, ops, tw, len(jobs))
+
+
+@pytest.mark.parametrize("k", BANDS)
+def test_scratch_bytes_per_member_hand_count(k):
+    """K5 keeps 4 bits per cell: rows * W / 2 bytes; K6 keeps H and F
+    (2 W int32) for each started 256-row block (hand counts)."""
+    hand = {63: (128, 1024), 127: (256, 2048), 255: (512, 4096),
+            511: (1024, 8192)}
+    W, ckpt_bytes = hand[k]
+    assert W == 2 * (k + 1)
+    assert scratch_bytes_per_member(2048, k, False) == 2048 * W // 2
+    assert scratch_bytes_per_member(4096, k, False) == 4096 * (k + 1)
+    assert scratch_bytes_per_member(4096, k, True) == 16 * ckpt_bytes
+    assert scratch_bytes_per_member(257, k, True) == 2 * ckpt_bytes
+    assert scratch_bytes_per_member(256, k, True) == ckpt_bytes
+
+
+def test_cuda_wrappers_refuse_bands_without_instance():
+    """A band the kernels have no template instance for raises before any
+    launch; so does a CPU tensor."""
+    jobs = _jobs(random.Random(63), 2)
+    t = [torch.from_numpy(x) for x in pack_affine_jobs(jobs, 256, 95)]
+    for fn in (affine_tb_cuda, affine_tb_ckpt_cuda):
+        with pytest.raises(ValueError, match="k must be one of"):
+            fn(*t, 95, 128)
+    t = [torch.from_numpy(x) for x in pack_affine_jobs(jobs, 256, 63)]
+    for fn in (affine_tb_cuda, affine_tb_ckpt_cuda):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(*t, 63, 128)

@@ -1,0 +1,216 @@
+"""The CUDA source of K5 and K6 (otter_tpu_torch/csrc/affine_tb.cu) run on
+the CPU: g++ compiles it against a small emulation of the CUDA surface it
+uses (each block a set of std::threads, one per CUDA thread; a warp meets
+at every shuffle and __syncwarp), and the kernels' results are held
+against the plain PyTorch version, exactly. This checks the warp-level
+design (the shuffle scan, the reductions, the staging, the nibble codes)
+where there is no card; the card runs the same source in
+tests/test_torch_cuda.py and chip_smoke.py."""
+
+import ctypes
+import random
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from otter_tpu_torch.kernels import affine_tb as K
+
+from test_torch_cuda import last_column_tie_jobs
+
+SOURCE = K.__file__.rsplit("/", 2)[0] + "/csrc/affine_tb.cu"
+
+# The CUDA names affine_tb.cu uses, for the host.
+CUDA_RUNTIME_H = r"""
+#pragma once
+#include <atomic>
+#include <barrier>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __align__(n)
+#define __shared__
+
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return 0;
+}
+inline cudaError_t cudaGetLastError() { return 0; }
+
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+inline thread_local Dim3 threadIdx, blockIdx;
+
+namespace emu {
+struct Warp {
+  std::barrier<> bar{32};
+  uint64_t slot[32];
+};
+inline thread_local Warp* warp;
+inline thread_local int lane;
+// every lane posts its value, then reads the source lane's (or its own)
+template <class T>
+T exchange(T v, int src, bool keep) {
+  uint64_t x = 0;
+  std::memcpy(&x, &v, sizeof(T));
+  warp->slot[lane] = x;
+  warp->bar.arrive_and_wait();
+  const uint64_t y = warp->slot[keep ? lane : src];
+  warp->bar.arrive_and_wait();
+  T r;
+  std::memcpy(&r, &y, sizeof(T));
+  return r;
+}
+// kernel<<<grid, block, smem, stream>>>(args): blocks one after another
+template <class F>
+auto launch(F f, int grid, int block, int, void*) {
+  return [=](auto... args) {
+    for (int g = 0; g < grid; ++g) {
+      std::vector<std::unique_ptr<Warp>> warps;
+      for (int q = 0; q < (block + 31) / 32; ++q) warps.emplace_back(new Warp);
+      std::vector<std::thread> threads;
+      for (int t = 0; t < block; ++t) {
+        threads.emplace_back([&, t, g]() {
+          threadIdx.x = t;
+          blockIdx.x = g;
+          warp = warps[t / 32].get();
+          lane = t % 32;
+          f(args...);
+        });
+      }
+      for (auto& th : threads) th.join();
+    }
+  };
+}
+}  // namespace emu
+
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  return emu::exchange(v, src & 31, false);
+}
+template <class T> T __shfl_up_sync(unsigned, T v, int d) {
+  return emu::exchange(v, emu::lane - d, emu::lane < d);
+}
+template <class T> T __shfl_down_sync(unsigned, T v, int d) {
+  return emu::exchange(v, emu::lane + d, emu::lane + d > 31);
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int d) {
+  return emu::exchange(v, emu::lane ^ d, false);
+}
+inline void __syncwarp() { emu::warp->bar.arrive_and_wait(); }
+inline unsigned __vcmpeq4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int c = 0; c < 4; ++c) {
+    if (((a ^ b) >> (8 * c) & 0xffu) == 0) r |= 0xffu << (8 * c);
+  }
+  return r;
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
+  return unsigned(((uint64_t(hi) << 32) | lo) >> (s & 31));
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """affine_tb.cu built for the host against the emulated CUDA names."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    d = tmp_path_factory.mktemp("affine_emu")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    with open(SOURCE) as fh:
+        src = fh.read()
+    # kernel<L><<<grid, block, smem, stream>>>(args) -> emu::launch(...)(args)
+    src = re.sub(r"(\w+<\w+>)<<<(.*?)>>>\(", r"emu::launch(\1, \2)(", src,
+                 flags=re.S)
+    (d / "affine_tb.cpp").write_text(
+        "#include <cuda_runtime.h>\n"
+        "namespace { alignas(16) uint8_t smem_raw[1 << 18]; }\n" + src)
+    lib = d / "libaffine_emu.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-w", f"-I{d}", "-o", str(lib), str(d / "affine_tb.cpp")],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn in (so.otter_affine_tb, so.otter_affine_tb_ckpt):
+        fn.restype = I
+        fn.argtypes = [P, I, P, I, P, I, I, P, P, I, P, P]
+    return so
+
+
+def _emulated_run(so, jobs, rows, k, ckpt):
+    a, bpad, mn = K.pack_affine_jobs(jobs, rows, k)
+    tw = K._t_words(rows, k)
+    B, La = a.shape
+    ops = np.full((B, tw), -7, dtype=np.int32)   # every word must be written
+    end = np.full((B, 4), -7, dtype=np.int32)
+    scratch = np.zeros(B * K.scratch_bytes_per_member(La, k, ckpt),
+                       dtype=np.uint8)
+    fn = so.otter_affine_tb_ckpt if ckpt else so.otter_affine_tb
+    err = fn(a.ctypes.data, La, bpad.ctypes.data, bpad.shape[1],
+             mn.ctypes.data, k, tw, ops.ctypes.data, end.ctypes.data, B,
+             scratch.ctypes.data, None)
+    assert err == 0
+    ops_p, end_p = K.affine_tb_torch(
+        *(torch.from_numpy(x) for x in (a, bpad, mn)), k, tw)
+    return (ops, end), (ops_p.numpy(), end_p.numpy())
+
+
+def _members(rng, n, lo, hi):
+    """Members against their representative: End2End, text-side frees,
+    pattern-side frees, long gaps in the text and in the pattern (E and F
+    runs across many lanes), and unrelated ones (not walked at narrow
+    bands)."""
+    jobs = []
+    for i in range(n):
+        rep = "".join(rng.choice("ACGT") for _ in range(rng.randint(lo, hi)))
+        mem = "".join(c if rng.random() > 0.03 else rng.choice("ACGT")
+                      for c in rep)
+        x, g = rng.randint(10, len(mem) - 40), rng.randint(12, 30)
+        cut = rng.randint(0, len(mem) // 3)
+        jobs.append([(mem, rep, 0, 0, 0, 0), (mem[cut:], rep, 0, 0, cut, 0),
+                     (rep, mem[cut:], cut, 0, 0, 0),
+                     (mem + "ACG", rep, 0, 3, 0, 0),
+                     (mem[:x] + mem[x + g:], rep, 0, 0, 0, 0),
+                     (mem[:x] + rep[:g] + mem[x:], rep, 0, 0, 0, 0),
+                     ("".join(rng.choice("ACGT") for _ in range(len(rep))),
+                      rep, 0, 0, 0, 0)][i % 7])
+    return jobs
+
+
+@pytest.mark.parametrize("k", K.BANDS)
+def test_cuda_source_k5_k6_emulated_match_plain(emulated, k):
+    """K5 and K6 as written for the card, run on the emulated warps: every
+    end cell and walk word equal to the plain version's (exact), for
+    members of one to two 256-row blocks and last-column ties."""
+    rng = random.Random(40 + k)
+    jobs = _members(rng, 7, 120, 460) + last_column_tie_jobs(rng, 2)
+    for ckpt in (False, True):
+        got, want = _emulated_run(emulated, jobs, 512, k, ckpt)
+        assert np.array_equal(got[1], want[1])
+        assert np.array_equal(got[0], want[0])
+    assert want[1][:, 3].sum() >= len(jobs) // 2

@@ -63,6 +63,33 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
 
+def _column_scores(p, t, tb, pe):
+    """Scores of p[:i] against all of t (no free ends after them) for the
+    last pe + 1 rows i, from the plain version on the CPU."""
+    jobs = [(p[:i], t, 0, 0, tb, 0) for i in range(len(p) - pe, len(p) + 1)]
+    args = [torch.from_numpy(x) for x in K5.pack_affine_jobs(jobs, 256, 63)]
+    return K5.affine_tb_torch(*args, 63, 128)[1][:, 0].numpy()
+
+
+def last_column_tie_jobs(rng, n):
+    """n members (pattern end free) whose end cell lies on the last column
+    above row m, where the smallest score is reached at two or more rows:
+    the tie order (largest i) decides the end cell."""
+    jobs = []
+    while len(jobs) < n:
+        core = "".join(rng.choice("AC") for _ in range(rng.randint(10, 40)))
+        tail = "".join(rng.choice("ACG") for _ in range(rng.randint(2, 12)))
+        t = core + "".join(rng.choice("AC") for _ in range(rng.randint(0, 3)))
+        p = core + tail
+        pe = rng.randint(2, len(tail))
+        tb = rng.randint(0, 3)
+        v = _column_scores(p, t, tb, pe)
+        low = v[:-1].min()
+        if low < v[-1] and (v[:-1] == low).sum() >= 2:
+            jobs.append((p, t, 0, pe, tb, 0))
+    return jobs
+
+
 @pytest.mark.parametrize("n_words", K1.N_WORDS_BUCKETS)
 def test_myers_pool_cuda_matches_plain(cuda_device, n_words):
     """K1 equals its plain version on the card and the native C++ edit
@@ -197,30 +224,74 @@ def test_edit_banded_cuda_matches_plain(cuda_device, k):
         assert d > k or g == d
 
 
-@pytest.mark.parametrize("k", [63, 255])
-def test_affine_tb_cuda_matches_plain(cuda_device, k):
-    """K5 and K6 on the card write their plain version's walks and end
-    cells, and the cigars equal the host ladder's (exact)."""
-    rng = random.Random(500 + k)
+def _affine_cases(rng, k):
+    """Consensus members of 100-1500 bp, some with a long gap in the text
+    or the pattern (E and F runs across many lanes), a few unrelated ones
+    (their score is not below the cap: not walked), and members whose end
+    cell is on the last column with tied scores."""
     jobs = []
     for i in range(150):
         rep = _acgt(rng, rng.randint(100, 1500))
         mem = _mutate(rng, rep, rng.choice([0.002, 0.02, 0.08]))
+        x, g = rng.randint(0, len(mem) - 1), rng.randint(8, k // 2)
+        if i % 25 == 24:
+            mem = _acgt(rng, len(rep) + rng.randint(0, k // 2))
+        elif i % 5 == 3:
+            mem = mem[:x] + mem[x + g:] or "A"
+        elif i % 5 == 4:
+            mem = mem[:x] + _acgt(rng, g) + mem[x:]
         cut = rng.randint(0, len(mem) // 4)
         jobs.append([(mem, rep, 0, 0, 0, 0), (mem[cut:], rep, 0, 0, cut, 0),
                      (rep, mem[cut:], cut, 0, 0, 0)][i % 3])
+    return jobs + last_column_tie_jobs(rng, 8)
+
+
+def _affine_both(args, k, tw):
+    """K5 and K6 on the card, each equal to the plain version (exact);
+    returns the plain end rows."""
+    ops_p, end_p = K5.affine_tb_torch(*args, k, tw)
+    before = (K5.affine_tb_cuda.launches, K5.affine_tb_ckpt_cuda.launches)
+    ops, end = K5.affine_tb(*args, k, tw)
+    ops_c, end_c = K5.affine_tb_ckpt(*args, k, tw)
+    assert (K5.affine_tb_cuda.launches, K5.affine_tb_ckpt_cuda.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(ops, ops_p) and torch.equal(end, end_p)
+    assert torch.equal(ops_c, ops_p) and torch.equal(end_c, end_p)
+    return end_p.cpu().numpy()
+
+
+@pytest.mark.parametrize("k", [63, 127, 255, 511])
+def test_affine_tb_cuda_matches_plain(cuda_device, k):
+    """K5 and K6 on the card write their plain version's walks and end
+    cells, on members of very different lengths in one launch, members
+    that are not walked and last-column ties, and the cigars equal the
+    host ladder's (exact)."""
+    rng = random.Random(500 + k)
+    jobs = _affine_cases(rng, k)
     a, bpad, mn = K5.pack_affine_jobs(jobs, 2048, k)
     tw = K5._t_words(2048, k)
     args = [torch.from_numpy(x).to(cuda_device) for x in (a, bpad, mn)]
-    ops, end = K5.affine_tb(*args, k, tw)
-    ops_p, end_p = K5.affine_tb_torch(*args, k, tw)
-    assert torch.equal(ops, ops_p) and torch.equal(end, end_p)
-    before = K5.affine_tb_ckpt_cuda.launches
-    ops_c, end_c = K5.affine_tb_ckpt(*args, k, tw)
-    assert K5.affine_tb_ckpt_cuda.launches == before + 1
-    assert torch.equal(ops_c, ops_p) and torch.equal(end_c, end_p)
+    end = _affine_both(args, k, tw)
+    assert 0 < end[:, 3].sum() < len(jobs)          # some are not walked
+    ties = end[len(jobs) - 8:]
+    assert np.all(ties[:, 2] == [len(j[1]) for j in jobs[-8:]])
     cigs, failed = K5.affine_cigars_tb(jobs, cuda_device)
     want = affine_cigars_multi(jobs)
     assert len(failed) < len(jobs) // 2
     for i in set(range(len(jobs))) - set(failed):
         assert cigs[i] == want[i]
+
+
+@pytest.mark.parametrize("k", [63, 127, 255, 511])
+def test_affine_tb_cuda_one_member(cuda_device, k):
+    """A launch of one member (one warp, most of K5's block idle), a
+    member of 1 bp and an unrelated member: exact against the plain
+    version."""
+    rng = random.Random(900 + k)
+    rep = _acgt(rng, 700)
+    for job in ((_mutate(rng, rep, 0.02), rep, 0, 0, 0, 0),
+                ("A", "C", 0, 0, 0, 0),
+                (_acgt(rng, 300), _acgt(rng, 300), 0, 0, 0, 0)):
+        a, bpad, mn = K5.pack_affine_jobs([job], 1024, k)
+        args = [torch.from_numpy(x).to(cuda_device) for x in (a, bpad, mn)]
+        _affine_both(args, k, K5._t_words(1024, k))
