@@ -16,8 +16,11 @@ exits non-zero:
    the package's host oracles (native C++ distances, the numpy ends-free DP,
    the native affine cigar ladder); then the time of the kernel and of the
    plain version on one workload of the shape the main path gives it, its
-   band (or DP) Gcells/s and its bound; K5 and K6 are also swept over every
-   band they have an instance for (k = 63, 127, 255, 511), exact;
+   band (or DP) Gcells/s and its bound; K2 also at every lane-group size G
+   on its timing set, K7 also at k = 1023 (its block kernel); K5 and K6
+   are swept over every band they have an instance for (k = 63, 127, 255,
+   511), K7 over k = 31 ... 1023 and K2 over every (G, q) shape its wrapper
+   can pick, exact;
 4. small main path: the port's ``assemble`` on the card writes the same SAM
    and FASTA bytes as on an exact host engine (native C++ distances, host
    ends-free DP, native affine ladder);
@@ -28,7 +31,8 @@ exits non-zero:
    kernel, checked for parity only.
    Each runs on the card and on the host engine: byte-identical output.
    Every kernel's launch count is zeroed before the card runs and read
-   after them; each must have launched.
+   after them; each must have launched. Then K2 is timed at the shape of
+   its launch in hifi-tr-1.5k (that run's ``jobs_k2`` count of jobs).
 
 The line before the last is a JSON object with each kernel's launches in
 phase 5, its largest disagreement with its plain version, its times and its
@@ -118,13 +122,16 @@ def cuda_wrappers() -> dict:
 
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
-    by CUDA events on the current stream."""
+    by CUDA events on the current stream. A 20 ms sleep on the stream
+    first lets the host queue the runs, so a short kernel is timed back to
+    back and not at the pace of its wrapper's host code."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(0.02 * CARD["sm_hz"]))
     t0.record()
     for _ in range(reps):
         fn()
@@ -283,9 +290,10 @@ def sass_loops(lib: str) -> None:
                     else int(br.group(2), 16)
                 if to is not None and to <= at:
                     longest = max(longest, (at - to) // 16 + 1)
-        k5 = re.search(r"affine_tb_kernelILi(\d+)E", fn_name)
-        per_cell = (f" ({longest / int(k5.group(1)):.1f} per cell over "
-                    f"L = {k5.group(1)} lanes)" if k5 else "")
+        lanes = re.search(r"(?:affine_tb|edit_banded_warp)_kernelILi(\d+)E",
+                          fn_name)
+        per_cell = (f" ({longest / int(lanes.group(1)):.1f} per cell over "
+                    f"L = {lanes.group(1)} lanes)" if lanes else "")
         log(f"  SASS {fn_name}: {len(ins)} instructions, longest loop "
             f"{longest}{per_cell}")
 
@@ -439,12 +447,93 @@ def kernel_k2(dev, rs) -> dict:
     a, cells = pool_args(dev, *text_side(tjobs))
     ms = time_ms(lambda: K2.myers_striped(*a), 3)
     plain_ms = time_ms(lambda: K2.myers_striped_torch(*a), 1)
-    check(bool(torch.equal(K2.myers_striped(*a), K2.myers_striped_torch(*a))),
+    want = K2.myers_striped_torch(*a)
+    check(bool(torch.equal(K2.myers_striped(*a), want)),
           "K2 disagrees with its plain version on the timing set")
     moved = nbytes(*(x for x in a if isinstance(x, torch.Tensor)))
+    striped_groups(a, cells, want, "timing set")
     return report("myers_striped", "K2 myers_striped", len(jobs), cells,
                   err == 0, oracle, ms, plain_ms, err,
                   moved + 4 * len(tjobs))
+
+
+def striped_groups(a, cells, want, what) -> None:
+    """K2 on one launch's inputs at every lane-group size G (q follows),
+    each equal to the plain result ``want``, with its time."""
+    import torch
+
+    from otter_tpu_torch.kernels import myers_striped as K2
+
+    auto = K2.striped_launch(a[4], a[3], a[7])[:2]
+    parts = []
+    for G in K2.GROUPS:
+        fn = lambda: K2.myers_striped_cuda(*a, group=G)  # noqa: E731
+        check(bool(torch.equal(fn(), want)), f"K2 at G = {G} disagrees with "
+              f"its plain version on the {what}")
+        shape = K2.striped_shape(len(want), a[7], G)
+        ms = time_ms(fn, 3)
+        parts.append(f"(G {shape[0]}, q {shape[1]}) {ms:.3f} ms "
+                     f"({cells / ms / 1e6:.1f} Gcells/s)")
+    log(f"K2 {what}, {len(want)} jobs, by lane group (the wrapper picks "
+        f"G {auto[0]}, q {auto[1]}), each == plain: " + "; ".join(parts))
+
+
+def k2_small_launch(dev, n_jobs: int) -> None:
+    """K2 at the shape of its launch in cell hifi-tr-1.5k: ``n_jobs`` (the
+    cell's jobs_k2 counter) reassignment jobs, a non-spanning read of
+    0.4-1.4 kb against a spanning read of 1.5-2.4 kb, its missing end
+    free; kernel and plain time, and every lane-group size."""
+    import torch
+
+    from otter_tpu_torch.kernels import myers_striped as K2
+
+    rs = np.random.default_rng(17)
+    alleles = [rand_acgt(rs, int(rs.integers(1500, 2401))) for _ in range(8)]
+    tjobs = []
+    for k in range(max(1, n_jobs)):
+        al = alleles[k % len(alleles)]
+        cut = int(rs.integers(400, 1401))
+        tjobs.append((mutate(rs, al[:cut], 0.002), al, 0, 0, 0,
+                      len(al) - cut))
+    a, cells = pool_args(dev, *text_side(tjobs))
+    want = K2.myers_striped_torch(*a)
+    ms = time_ms(lambda: K2.myers_striped(*a), 5)
+    plain_ms = time_ms(lambda: K2.myers_striped_torch(*a), 1)
+    check(bool(torch.equal(K2.myers_striped(*a), want)),
+          "K2 disagrees with its plain version at the cell's launch shape")
+    bound_ms, bound_by = bound("myers_striped", cells, nbytes(
+        *(x for x in a if isinstance(x, torch.Tensor))) + 4 * len(tjobs))
+    log(f"K2 at the shape of its hifi-tr-1.5k launch ({len(tjobs)} jobs): "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, == plain (max |diff| "
+        f"0); bound {bound_ms:.4f} ms by {bound_by}, "
+        f"{100 * bound_ms / ms:.2f}% of it")
+    striped_groups(a, cells, want, "hifi-tr-1.5k launch shape")
+
+
+def striped_sweep(dev) -> None:
+    """K2 at every (G, q) its wrapper can pick, exact against the plain
+    version: one-sided ends-free jobs of both orientations whose longest
+    pattern fills G q words (past 2048 bp from q = 2 at G = 32), and a
+    launch of one job."""
+    import torch
+
+    from otter_tpu_torch.kernels import myers_striped as K2
+
+    rs = np.random.default_rng(13)
+    for G, q in K2.striped_shapes():
+        m_max = 64 * G * q - int(rs.integers(0, 40))
+        jobs = [(rand_acgt(rs, m_max), rand_acgt(rs, 300), 0, 0, 5, 9)]
+        jobs += one_sided_jobs(rs, 200, 1, min(m_max, 1500))
+        for what, sel in (("all", jobs), ("one job", jobs[:1])):
+            a, _c = pool_args(dev, *text_side(sel))
+            check(K2.striped_launch(a[4], a[3], a[7], G)[:2] == (G, q),
+                  f"K2 sweep: jobs do not give (G {G}, q {q})")
+            check(bool(torch.equal(K2.myers_striped_cuda(*a, group=G),
+                                   K2.myers_striped_torch(*a))),
+                  f"K2 at (G {G}, q {q}) disagrees with its plain version "
+                  f"({what})")
+    log(f"K2 sweep: (G, q) = {K2.striped_shapes()}, {len(jobs)} jobs each "
+        f"and a launch of one job: all == plain (max |diff| 0)")
 
 
 def kernel_k3(dev, rs) -> dict:
@@ -580,9 +669,66 @@ def kernel_k7(dev, rs) -> dict:
     check(bool(torch.equal(K7.edit_banded(*a, 63),
                            K7.edit_banded_torch(*a, 63))),
           "K7 disagrees with its plain version on the timing set")
-    return report("edit_banded", "K7 edit_banded (k 63, 511; band cells)",
-                  len(pairs), cells, err == 0, oracle, ms, plain_ms, err,
-                  nbytes(*a) + 4 * len(tpairs))
+    out = report("edit_banded", "K7 edit_banded (k 63, 511; band cells)",
+                 len(pairs), cells, err == 0, oracle, ms, plain_ms, err,
+                 nbytes(*a) + 4 * len(tpairs))
+
+    # a rung past 511 (the block kernel): 256 pairs of 2.5-3 kb reads with
+    # N bases, k = 1023
+    wpairs = []
+    for _ in range(256):
+        s = with_n(rs, rand_acgt(rs, int(rs.integers(2500, 3001))), 3)
+        wpairs.append((s, with_n(rs, mutate(rs, s, 0.002), 2)))
+    a = [int32_tensor(x, dev) for x in K7.pack_banded(wpairs, 1023)]
+    wcells = float(sum(max(len(x), len(y)) for x, y in wpairs) * 2048)
+    wms = time_ms(lambda: K7.edit_banded(*a, 1023), 3)
+    wplain = time_ms(lambda: K7.edit_banded_torch(*a, 1023), 1)
+    check(bool(torch.equal(K7.edit_banded(*a, 1023),
+                           K7.edit_banded_torch(*a, 1023))),
+          "K7 disagrees with its plain version at k 1023")
+    wb, wby = bound("edit_banded", wcells, nbytes(*a) + 4 * len(wpairs))
+    log(f"K7 at k 1023 (block kernel), {len(wpairs)} pairs of 2.5-3 kb: "
+        f"kernel {wms:.3f} ms, plain {wplain:.3f} ms, == plain (max |diff| "
+        f"0); {wcells / wms / 1e6:.2f} band Gcells/s; bound {wb:.4f} ms by "
+        f"{wby}, {100 * wb / wms:.2f}% of it")
+    return out
+
+
+def edit_sweep(dev) -> None:
+    """K7 at k = 31 ... 1023 (a warp per pair to 511, a block above),
+    exact against the plain version: pairs of 30 bp to 2 kb with N bases,
+    unrelated pairs, a length difference past k, an alignment along
+    diagonal +min(k, 200), and a launch of one pair; with band Gcells/s."""
+    import torch
+
+    from otter_tpu_torch.kernels import edit_banded as K7
+    from otter_tpu_torch.kernels.myers_pallas import int32_tensor
+
+    rs = np.random.default_rng(12)
+    for k in (31, 63, 127, 255, 511, 1023):
+        pairs = []
+        for _ in range(300):
+            s = with_n(rs, rand_acgt(rs, int(rs.integers(30, 2000))), 2)
+            pairs.append((s, mutate(rs, s, float(rs.choice([0.002, 0.05,
+                                                             0.3]))) or "N"))
+        g = min(k, 200)
+        x = rand_acgt(rs, 4 * g + 40)
+        pairs += [(rand_acgt(rs, 1500), rand_acgt(rs, 1490)),
+                  (rand_acgt(rs, 30), rand_acgt(rs, 31 + k)),
+                  (x + rand_acgt(rs, g + 1),
+                   x[:20] + rand_acgt(rs, g) + x[20:])]
+        cells = float(sum(max(len(p), len(t)) for p, t in pairs) * 2
+                      * (k + 1))
+        for what, sel in (("all", pairs), ("one pair", pairs[:1])):
+            a = [int32_tensor(y, dev) for y in K7.pack_banded(sel, k)]
+            check(bool(torch.equal(K7.edit_banded(*a, k),
+                                   K7.edit_banded_torch(*a, k))),
+                  f"K7 disagrees with its plain version at k {k} ({what})")
+            if what == "all":
+                ms = time_ms(lambda: K7.edit_banded(*a, k), 2)
+        log(f"K7 sweep k {k}: {len(pairs)} pairs and a launch of one pair, "
+            f"== plain (max |diff| 0); {ms:.3f} ms, "
+            f"{cells / ms / 1e6:.2f} band Gcells/s")
 
 
 def consensus_jobs(rs, n, lo, hi, err):
@@ -756,6 +902,8 @@ def phase_kernels(dev) -> dict:
            "affine_tb": kernel_k5(dev, rs),
            "affine_tb_ckpt": kernel_k6(dev, rs)}
     affine_sweep(dev)
+    edit_sweep(dev)
+    striped_sweep(dev)
     return out
 
 
@@ -909,12 +1057,13 @@ def phase_full(tmp: str) -> dict:
     for fn in wrappers.values():
         fn.launches = 0
     launches = dict.fromkeys(wrappers, 0)
+    counters = {}
     for name, bam, bed, n, rates in (
             ("cell hifi-tr-1.5k", bam_a, bed_a, 32, True),
             ("route coverage (parity only)", bam_b, bed_b, 4, False),
             ("route coverage, 7.5 kb allele (parity only)", bam_c, bed_c, 2,
              False)):
-        c = run_cell(name, bam, bed, n, rates)
+        counters[name] = run_cell(name, bam, bed, n, rates)
         cell = {}
         for k, fn in wrappers.items():  # the host run launches nothing
             cell[k] = fn.launches - launches[k]
@@ -923,7 +1072,7 @@ def phase_full(tmp: str) -> dict:
     log(f"kernel launches in phase 5: {json.dumps(launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
-    return launches
+    return launches, counters["cell hifi-tr-1.5k"]
 
 
 def phase_profile(tmp: str) -> None:
@@ -987,7 +1136,8 @@ def main() -> int:
     timings = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)
-        launches = phase_full(tmp)
+        launches, cell = phase_full(tmp)
+    k2_small_launch(dev, cell["jobs_k2"])
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name], **timings[name]}
                for name, (src, rep) in KERNELS.items()]

@@ -14,16 +14,49 @@
 // column n after row m: exact when it is <= k, INF when |m - n| > k. The
 // arithmetic is the TPU kernel's, value for value, INF lanes included.
 //
-// What bounds it: one thread walks its pair's m rows of W lanes with ~10
-// int32 operations per cell, and the row lives in global scratch (one load
-// and one store of 4 bytes per cell, from L2 for the band widths of the
-// ladder's first rungs), so it is bound by that traffic: the TPU kernel's
-// row-parallel prefix-min scan has no counterpart here. A simple kernel that
-// is right, for pairs that are rare on HiFi data (reads with N bases).
+// The running minimum run = min(v, run + 1) is, for every lane w, the
+// prefix-min of v[w'] - w' over w' <= w, plus w. Both designs below take it
+// that way: a running minimum over a thread's own lanes, then a scan of the
+// thread minima. min is exact in any order, so the values are those of the
+// sequential chain, INF lanes included.
 //
-// Design: one thread per pair and the row updated in place (lane w reads the
-// old lanes w and w + 1 before it is written); scratch is lane-major
-// ([W][B]) so a warp's accesses coalesce.
+// k <= 511 (W <= 1024), the rungs the engine's ladder starts with: one warp
+// per pair (edit_banded_warp_kernel), 4 pairs a block. W is rounded up to
+// 32 L lanes, L = 1, 2, 4, 8, 12, 16, 24 or 32 (a template parameter: k = 7
+// takes L = 1, 31 L = 2, 63 L = 4, 127 L = 8, 130 and 383 L = 12, 255
+// L = 16, 511 L = 32), and thread t keeps lanes [t L, t L + L) of the row in
+// registers; the extra lanes past W are held at INF (the lane bound of row i
+// is j <= min(n, i + k)), so the "up" value of lane W - 1 stays INF. A row
+// update reads its "up" operand from the thread's next register, or for its
+// last lane from thread t + 1 by __shfl_down_sync, taken before the row is
+// overwritten. The text chars of a thread's lanes (bpad[i - 1 + w]) live in L
+// registers and move one lane a row: a register move each and one shuffle,
+// the warp's last lane taking the entering char. The pattern char of the row
+// and the entering text char come 32 rows at a time in one coalesced load
+// per lane and go out by shuffles, so no cell waits on a dependent global
+// load. The prefix-min is a 5-step __shfl_up_sync scan of the 32 thread
+// minima and one shift to make it exclusive.
+//
+// k > 511 (W > 1024; the doubling rungs from 1023, and the last rung of
+// sides over 32 kb): one block per pair (edit_banded_block_kernel), T =
+// min(1024, W / 8 rounded up to a warp) threads, each with a contiguous run
+// of ceil(W / T) lanes. The row lives in shared memory while 4 W bytes fit
+// in kSmemLanes (k <= 16383), and in device-memory scratch beyond (the
+// caller's W * B int32). A row is three steps with a __syncthreads() after
+// each: every thread reads the first lane of the next thread's run; every
+// thread updates its run in place (ascending, so lane w + 1 is still the old
+// row when lane w is written) to the running minimum of v[w] - w and scans
+// the thread minima within its warp, the warp totals going to shared memory;
+// every thread takes its exclusive prefix from its warp's scan and the
+// totals of the warps before it, and writes the row.
+//
+// What bounds it: INT32 issue. A band cell costs about 12 integer operations
+// (the row update, then the prefix and the write-back), and a row adds ~10
+// shuffles per warp (the scan's 6, the "up" operand, the text window's
+// entering char, the pattern and entering chars). The scan is a dependent
+// chain of shuffles per row; the design hides it with several pairs per SM
+// (a launch holds up to K7_CHUNK = 1024 pairs, 256 blocks of 4 warps) rather
+// than with wider rows.
 
 #include <cstdint>
 
@@ -31,59 +64,231 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr unsigned kAll = 0xffffffffu;
 constexpr int kInf = 1 << 24;
+constexpr int kNone = 1 << 30;  // identity of min: above every value
+constexpr int kWarps = 4;       // pairs (warps) per block, k <= 511
+constexpr int kChunk = 32;      // rows of chars loaded at a time
+constexpr int kSmemLanes = 32768;  // k > 511: row in shared memory up to here
 
-__global__ void __launch_bounds__(kThreads)
-edit_banded_kernel(const int32_t* __restrict__ a,
-                   const int32_t* __restrict__ bpad,
-                   const int32_t* __restrict__ mn, int L, int k,
-                   int32_t* __restrict__ out, int n_pairs,
-                   int32_t* __restrict__ scratch) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= n_pairs) return;
-  const int W = 2 * (k + 1);
-  const int m = min(mn[2 * b], L);
+__device__ __forceinline__ int load_or0(const int32_t* p, int len, int idx) {
+  return idx < len ? p[idx] : 0;
+}
+
+// One warp per pair; thread `lane` keeps lanes [lane L, lane L + L).
+template <int L>
+__global__ void __launch_bounds__(32 * kWarps)
+edit_banded_warp_kernel(const int32_t* __restrict__ a,
+                        const int32_t* __restrict__ bpad,
+                        const int32_t* __restrict__ mn, int La, int k,
+                        int32_t* __restrict__ out, int n_pairs) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= n_pairs) return;  // the whole warp
+  const int k1 = k + 1;
+  const int W = 2 * k1;
+  const int Lb = La + W + 2;
+  const int m = min(mn[2 * b], La);
   const int n = mn[2 * b + 1];
-  const size_t stride = static_cast<size_t>(n_pairs);
-  int32_t* row = scratch + b;
-  for (int w = 0; w < W; ++w) {
-    const int j = w - (k + 1);
-    row[w * stride] = (j >= 0 && j <= n) ? j : kInf;
+  const int32_t* arow = a + static_cast<size_t>(b) * La;
+  const int32_t* brow = bpad + static_cast<size_t>(b) * Lb;
+  const int w0 = lane * L;
+
+  int H[L], txt[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int j0 = w0 + l - k1;
+    H[l] = (w0 + l < W && j0 >= 0 && j0 <= n) ? j0 : kInf;
+    txt[l] = load_or0(brow, Lb, w0 + l);  // row 1's window: bpad[w]
   }
-  const int32_t* arow = a + static_cast<size_t>(b) * L;
-  const int32_t* brow = bpad + static_cast<size_t>(b) * (L + W + 2);
+  int aw = 0, nw = 0;
+#pragma unroll 1
   for (int i = 1; i <= m; ++i) {
-    const int ac = arow[i - 1];
-    int run = 0;
-    int next = row[0];
-    for (int w = 0; w < W; ++w) {
-      const int j = i + w - (k + 1);
-      const int prev = next;
-      next = w + 1 < W ? row[(w + 1) * stride] : kInf;
-      int v = min(next + 1, prev + (brow[i - 1 + w] != ac ? 1 : 0));
+    const int r = (i - 1) % kChunk;
+    if (r == 0) {  // rows i .. i + 31: one char of each per lane
+      aw = load_or0(arow, La, i - 1 + lane);
+      nw = load_or0(brow, Lb, i - 2 + 32 * L + lane);
+    }
+    const int ac = __shfl_sync(kAll, aw, r);
+    const int nc = __shfl_sync(kAll, nw, r);
+    if (i > 1) {  // the window moves one lane: bpad[i - 1 + w]
+      int next = __shfl_down_sync(kAll, txt[0], 1);
+      if (lane == 31) next = nc;
+#pragma unroll
+      for (int l = 0; l + 1 < L; ++l) txt[l] = txt[l + 1];
+      txt[L - 1] = next;
+    }
+    // the "up" operand of the thread's last lane, before it is replaced
+    int up_next = __shfl_down_sync(kAll, H[0], 1);
+    if (lane == 31) up_next = kInf;
+    const int jhi = min(n, i + k);  // j <= n and w <= W - 1
+    const int j0 = i + w0 - k1;     // column of the thread's first lane
+
+    // pass 1: v of every lane, kept as the running minimum of v[l] - l over
+    // the thread's lanes
+    int run = kNone;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int j = j0 + l;
+      const int up = l + 1 < L ? H[l + 1] : up_next;
+      int v = min(up + 1, H[l] + (txt[l] != ac ? 1 : 0));
       if (j == 0) v = i;
-      const bool invalid = j < 0 || j > n;
-      if (invalid) v = kInf;
-      run = w == 0 ? v : min(v, run + 1);
-      row[w * stride] = invalid ? kInf : run;
+      if (j < 0 || j > jhi) v = kInf;
+      run = min(run, v - l);
+      H[l] = run;
+    }
+
+    // inclusive prefix-min of the thread minima (as v - w) across the warp,
+    // then shifted to be exclusive
+    int incl = run - w0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kAll, incl, d);
+      if (lane >= d) incl = min(incl, y);
+    }
+    int pre = __shfl_up_sync(kAll, incl, 1);
+    pre = lane == 0 ? kNone : pre + w0;  // as v - l of this thread's lanes
+
+    // pass 2: the row
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int j = j0 + l;
+      H[l] = (j < 0 || j > jhi) ? kInf : min(pre, H[l]) + l;
     }
   }
-  const int target = n - m + (k + 1);
-  const bool valid = (m - n <= k) && (n - m <= k);
-  out[b] = valid ? row[target * stride] : kInf;
+
+  // the lane of column n after row m
+  const int wt = n - m + k1;
+  const bool valid = m - n <= k && n - m <= k;
+  const int src = valid ? wt / L : 0;
+  const int sl = valid ? wt % L : 0;
+  int hv = H[0];
+#pragma unroll
+  for (int l = 1; l < L; ++l) {
+    if (l == sl) hv = H[l];
+  }
+  hv = __shfl_sync(kAll, hv, src);
+  if (lane == 0) out[b] = valid ? hv : kInf;
+}
+
+// One block per pair; thread t keeps lanes [t R, min(t R + R, W)) with
+// R = ceil(W / blockDim.x) of the row in `row` (shared memory, or the pair's
+// W int32 of device-memory scratch), and the warp totals of a row's scan in
+// shared memory after it.
+__global__ void __launch_bounds__(1024)
+edit_banded_block_kernel(const int32_t* __restrict__ a,
+                         const int32_t* __restrict__ bpad,
+                         const int32_t* __restrict__ mn, int La, int k,
+                         int32_t* __restrict__ out,
+                         int32_t* __restrict__ scratch) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int b = blockIdx.x;
+  const int k1 = k + 1;
+  const int W = 2 * k1;
+  const int Lb = La + W + 2;
+  const bool in_smem = W <= kSmemLanes;
+  int32_t* row = in_smem ? reinterpret_cast<int32_t*>(smem_raw)
+                         : scratch + static_cast<size_t>(b) * W;
+  int32_t* wtot = reinterpret_cast<int32_t*>(smem_raw) + (in_smem ? W : 0);
+  const int m = min(mn[2 * b], La);
+  const int n = mn[2 * b + 1];
+  const int32_t* arow = a + static_cast<size_t>(b) * La;
+  const int32_t* brow = bpad + static_cast<size_t>(b) * Lb;
+  const int R = (W + blockDim.x - 1) / blockDim.x;
+  const int w0 = min(t * R, W);
+  const int w1 = min(w0 + R, W);
+  for (int w = w0; w < w1; ++w) {
+    const int j = w - k1;
+    row[w] = (j >= 0 && j <= n) ? j : kInf;
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int i = 1; i <= m; ++i) {
+    const int ac = arow[i - 1];
+    const int up_next = w1 < W ? row[w1] : kInf;  // before it is replaced
+    __syncthreads();
+    const int32_t* btxt = brow + (i - 1);
+    int run = kNone;
+    for (int w = w0; w < w1; ++w) {
+      const int j = i + w - k1;
+      const int up = w + 1 < w1 ? row[w + 1] : up_next;
+      int v = min(up + 1, row[w] + (btxt[w] != ac ? 1 : 0));
+      if (j == 0) v = i;
+      if (j < 0 || j > n) v = kInf;
+      run = min(run, v - w);
+      row[w] = run;
+    }
+    int incl = run;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kAll, incl, d);
+      if (lane >= d) incl = min(incl, y);
+    }
+    if (lane == 31) wtot[warp] = incl;
+    __syncthreads();
+    int pre = __shfl_up_sync(kAll, incl, 1);
+    if (lane == 0) pre = kNone;
+    for (int q = 0; q < warp; ++q) pre = min(pre, wtot[q]);
+    for (int w = w0; w < w1; ++w) {
+      const int j = i + w - k1;
+      row[w] = (j < 0 || j > n) ? kInf : min(pre, row[w]) + w;
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    const bool valid = m - n <= k && n - m <= k;
+    out[b] = valid ? row[n - m + k1] : kInf;
+  }
+}
+
+template <int L>
+cudaError_t launch_warp(const int32_t* a, const int32_t* bpad,
+                        const int32_t* mn, int La, int k, int32_t* out,
+                        int n_pairs, cudaStream_t stream) {
+  const int blocks = (n_pairs + kWarps - 1) / kWarps;
+  edit_banded_warp_kernel<L><<<blocks, 32 * kWarps, 0, stream>>>(
+      a, bpad, mn, La, k, out, n_pairs);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_block(const int32_t* a, const int32_t* bpad,
+                         const int32_t* mn, int La, int k, int32_t* out,
+                         int n_pairs, int32_t* scratch, cudaStream_t stream) {
+  const int W = 2 * (k + 1);
+  const int threads = min(1024, (W / 8 + 31) / 32 * 32);
+  const int smem = (W <= kSmemLanes ? 4 * W : 0) + 4 * 32;
+  if (W > kSmemLanes && scratch == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      edit_banded_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  edit_banded_block_kernel<<<n_pairs, threads, smem, stream>>>(
+      a, bpad, mn, La, k, out, scratch);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch holds 2 (k + 1) * n_pairs int32, allocated by the caller.
+// k >= 0. scratch holds 2 (k + 1) * n_pairs int32 when 2 (k + 1) > 32768
+// (allocated by the caller); it is not read otherwise and may be null.
 extern "C" int otter_edit_banded(const int32_t* a, const int32_t* bpad,
                                  const int32_t* mn, int L, int k, int32_t* out,
                                  int n_pairs, void* scratch, void* stream) {
   if (k < 0 || L < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n_pairs + kThreads - 1) / kThreads;
-  edit_banded_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      a, bpad, mn, L, k, out, n_pairs, static_cast<int32_t*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  if (n_pairs <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int lanes = (2 * (k + 1) + 31) / 32;  // a thread's lanes in a warp
+  if (lanes <= 1) return launch_warp<1>(a, bpad, mn, L, k, out, n_pairs, s);
+  if (lanes <= 2) return launch_warp<2>(a, bpad, mn, L, k, out, n_pairs, s);
+  if (lanes <= 4) return launch_warp<4>(a, bpad, mn, L, k, out, n_pairs, s);
+  if (lanes <= 8) return launch_warp<8>(a, bpad, mn, L, k, out, n_pairs, s);
+  if (lanes <= 12) return launch_warp<12>(a, bpad, mn, L, k, out, n_pairs, s);
+  if (lanes <= 16) return launch_warp<16>(a, bpad, mn, L, k, out, n_pairs, s);
+  if (lanes <= 24) return launch_warp<24>(a, bpad, mn, L, k, out, n_pairs, s);
+  if (lanes <= 32) return launch_warp<32>(a, bpad, mn, L, k, out, n_pairs, s);
+  return launch_block(a, bpad, mn, L, k, out, n_pairs,
+                      static_cast<int32_t*>(scratch), s);
 }

@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels (``otter_tpu_torch/csrc/*.cu``).
 
-The sources have a plain C interface, so ``nvcc`` compiles them straight
-into one shared library for ``sm_90a`` (seconds, where a build against
-PyTorch's headers takes minutes) and ``ctypes`` loads it. The library is
+The sources have a plain C interface, so ``nvcc`` compiles them for
+``sm_90a`` (seconds, where a build against PyTorch's headers takes minutes;
+one ``nvcc`` per source, all started together) and links them into one
+shared library, which ``ctypes`` loads. The library is
 content-addressed: its name carries a hash of the sources, so an edit builds
 a new one and a long-lived process never keeps a stale image. It is built at
 first use into ``build/otter_tpu_torch/`` at the repository root. A build
@@ -24,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "otter_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,13 +69,24 @@ def build() -> str:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                          capture_output=True, text=True)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    codes = [p.returncode for p in procs] + [link.returncode]
+    log = "".join(logs) + link.stdout + link.stderr
+    if any(codes):
+        raise RuntimeError(f"nvcc failed ({codes}):\n{log}")
     with open(lib[:-3] + ".log", "w") as fh:
-        fh.write(res.stdout + res.stderr)
+        fh.write(log)
     os.replace(tmp, lib)  # atomic against a concurrent build
     return lib
 
@@ -96,7 +108,8 @@ def load() -> ctypes.CDLL:
                                              _I, _I, _I, _P]
             lib.otter_myers_striped.restype = _I
             lib.otter_myers_striped.argtypes = [_P, _I, _P, _P, _P, _P, _P,
-                                                _P, _P, _I, _I, _I, _P, _P]
+                                                _P, _P, _I, _I, _I, _I, _I,
+                                                _P, _P]
             lib.otter_myers_banded.restype = _I
             lib.otter_myers_banded.argtypes = [_P, _I, _P, _P, _P, _P, _I,
                                                _P, _I, _I, _I, _P, _P]

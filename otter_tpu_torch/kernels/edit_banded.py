@@ -24,6 +24,7 @@ import torch
 from .myers_pallas import data_ptr
 
 INF = 1 << 24
+SMEM_LANES = 1 << 15   # k > 511: the row in shared memory up to W lanes
 
 
 def pack_banded(pairs: Sequence[Tuple[str, str]], k: int
@@ -97,7 +98,9 @@ def edit_banded_torch(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
 def edit_banded_cuda(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
                      k: int) -> torch.Tensor:
     """K7 on the card (``csrc/edit_banded.cu``): one launch on the current
-    stream, no synchronisation. Raises on bad inputs or a refused launch."""
+    stream, no synchronisation; a warp per pair for k <= 511, a block per
+    pair above, with the row in device-memory scratch (allocated here) once
+    it outgrows shared memory. Raises on bad inputs or a refused launch."""
     from . import _build
 
     _check(a, bpad, mn, k)
@@ -107,7 +110,8 @@ def edit_banded_cuda(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
     out = torch.empty(B, dtype=torch.int32, device=a.device)
     if B == 0:
         return out
-    scratch = torch.empty(2 * (k + 1) * B, dtype=torch.int32,
+    W = 2 * (k + 1)
+    scratch = torch.empty(W * B if W > SMEM_LANES else 0, dtype=torch.int32,
                           device=a.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -3,8 +3,9 @@ ends-free boundaries on the text.
 
 Counterpart of ``otter_tpu/kernels/myers_striped.py``. The TPU kernel runs
 the pattern in stripes of 32 words chained by per-character carry planes;
-here the whole pattern is one pass (one thread per job on the card, all
-words at once in the plain version), which gives the same scores.
+on the card a group of G lanes runs a job, each lane a stripe of q words,
+the carries passed lane to lane by shuffles (``striped_shape`` picks G and
+q); the plain version runs all words at once. All give the same scores.
 
 Per job: pattern = pool row ``idx_pat`` of ``minit`` chars, text = pool row
 ``idx_txt`` of ``nlen`` chars, ``tb`` free leading and ``te`` free trailing
@@ -30,12 +31,60 @@ from .myers_pallas import (M32, check_inputs, data_ptr, int32_tensor,
                            score_row)
 
 CAPTURE_INIT = 1 << 30
+GROUPS = (1, 2, 4, 8, 16, 32)   # G: lanes on a job
+FILL_LANES = 1 << 16            # G: the power of two >= this / jobs
 
 
 def striped_n_words(max_m: int) -> int:
     """32-bit pattern words for patterns up to max_m chars: an even count
     (the kernel runs 64-bit words), at least 2."""
     return 2 * max(1, -(-max_m // 64))
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def striped_shape(n_jobs: int, n_words: int, group=None) -> Tuple[int, int]:
+    """(G, q) of a K2 launch: G lanes on each job, q 64-bit words a lane
+    (a power of two, the kernel's template instances 1 ... 32). Patterns
+    past 32 words (2048 chars) take a whole warp; otherwise G grows while
+    the launch has fewer than FILL_LANES lanes (a small launch puts many
+    lanes on each job, a large one one or a few), up to the pattern's word
+    count. ``group`` forces G (a sweep or a test)."""
+    nw64 = n_words // 2
+    if nw64 > 32:
+        G = 32
+    elif group is not None:
+        if group not in GROUPS:
+            raise ValueError(f"group must be one of {GROUPS}")
+        G = group
+    else:
+        G = min(32, _pow2_ceil(max(1, FILL_LANES // max(1, n_jobs))),
+                _pow2_ceil(nw64))
+    return G, _pow2_ceil(-(-nw64 // G))
+
+
+def striped_launch(minit: torch.Tensor, nlen: torch.Tensor, n_words: int,
+                   group=None):
+    """(G, q, order) of a K2 launch over jobs of these lengths: the shape
+    from ``striped_shape``, and where a warp holds several jobs (G < 32)
+    the jobs in order of the words a lane runs, then of text length (int32,
+    on their device), so the groups of a warp run alike and finish
+    together; else None."""
+    B = minit.shape[0]
+    G, q = striped_shape(B, n_words, group)
+    if G == 32 or B <= 32 // G:
+        return G, q, None
+    words = (minit.to(torch.int64) + 63) // 64
+    key = (words + G - 1) // G * (1 << 32) + nlen.to(torch.int64)
+    return G, q, torch.argsort(key).to(torch.int32)
+
+
+def striped_shapes() -> List[Tuple[int, int]]:
+    """Every (G, q) ``striped_shape`` can give, for n_words up to 1024."""
+    return sorted({striped_shape(1, 2 * nw64, g)
+                   for nw64 in range(1, 513) for g in GROUPS})
 
 
 def myers_striped_torch(pool: torch.Tensor, idx_pat: torch.Tensor,
@@ -75,11 +124,11 @@ def myers_striped_torch(pool: torch.Tensor, idx_pat: torch.Tensor,
 def myers_striped_cuda(pool: torch.Tensor, idx_pat: torch.Tensor,
                        idx_txt: torch.Tensor, nlen: torch.Tensor,
                        minit: torch.Tensor, tb: torch.Tensor,
-                       te: torch.Tensor, n_words: int,
-                       text_len: int) -> torch.Tensor:
+                       te: torch.Tensor, n_words: int, text_len: int,
+                       group=None) -> torch.Tensor:
     """K2 on the card (``csrc/myers_striped.cu``): one launch on the
-    current stream, no synchronisation; the DP state lives in a scratch
-    tensor allocated here. Raises on bad inputs or a refused launch."""
+    current stream, no synchronisation, shaped by ``striped_launch``
+    (``group`` forces G). Raises on bad inputs or a refused launch."""
     from . import _build
 
     check_inputs(pool, (idx_pat, idx_txt, nlen, minit, tb, te), n_words,
@@ -92,16 +141,15 @@ def myers_striped_cuda(pool: torch.Tensor, idx_pat: torch.Tensor,
     out = torch.empty(B, dtype=torch.int32, device=pool.device)
     if B == 0:
         return out
-    scratch = torch.empty(4 * (n_words // 2) * B, dtype=torch.int64,
-                          device=pool.device)
+    G, q, order = striped_launch(minit, nlen, n_words, group)
     lib = _build.load()
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     with torch.cuda.device(pool.device):
         err = lib.otter_myers_striped(
             data_ptr(pool), pool.shape[1], data_ptr(idx_pat),
             data_ptr(idx_txt), data_ptr(nlen), data_ptr(minit), data_ptr(tb),
-            data_ptr(te), data_ptr(out), B, n_words, text_len,
-            data_ptr(scratch), stream)
+            data_ptr(te), data_ptr(out), B, n_words, text_len, G, q,
+            None if order is None else data_ptr(order), stream)
     _build.check(lib, err, "myers_striped_cuda")
     myers_striped_cuda.launches += 1
     return out

@@ -1,7 +1,9 @@
 """The CUDA source of K5 and K6 (otter_tpu_torch/csrc/affine_tb.cu) run on
 the CPU: g++ compiles it against a small emulation of the CUDA surface it
 uses (each block a set of std::threads, one per CUDA thread; a warp meets
-at every shuffle and __syncwarp), and the kernels' results are held
+at every shuffle and __syncwarp, a block at every __syncthreads; the
+emulation also serves tests/test_torch_distance_emulated.py), and the
+kernels' results are held
 against the plain PyTorch version, exactly. This checks the warp-level
 design (the shuffle scan, the reductions, the staging, the nibble codes)
 where there is no card; the card runs the same source in
@@ -63,14 +65,19 @@ inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local Dim3 threadIdx, blockIdx;
+inline thread_local Dim3 threadIdx, blockIdx, blockDim;
 
 namespace emu {
 struct Warp {
   std::barrier<> bar{32};
   uint64_t slot[32];
 };
+struct Block {
+  std::barrier<> bar;
+  explicit Block(int n) : bar(n) {}
+};
 inline thread_local Warp* warp;
+inline thread_local Block* block;
 inline thread_local int lane;
 // every lane posts its value, then reads the source lane's (or its own)
 template <class T>
@@ -92,12 +99,15 @@ auto launch(F f, int grid, int block, int, void*) {
     for (int g = 0; g < grid; ++g) {
       std::vector<std::unique_ptr<Warp>> warps;
       for (int q = 0; q < (block + 31) / 32; ++q) warps.emplace_back(new Warp);
+      Block blk(block);
       std::vector<std::thread> threads;
       for (int t = 0; t < block; ++t) {
         threads.emplace_back([&, t, g]() {
           threadIdx.x = t;
           blockIdx.x = g;
+          blockDim.x = block;
           warp = warps[t / 32].get();
+          emu::block = &blk;
           lane = t % 32;
           f(args...);
         });
@@ -108,19 +118,24 @@ auto launch(F f, int grid, int block, int, void*) {
 }
 }  // namespace emu
 
-template <class T> T __shfl_sync(unsigned, T v, int src) {
-  return emu::exchange(v, src & 31, false);
+// width: the warp splits into groups of that many lanes (a power of two)
+template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  return emu::exchange(v, (emu::lane & ~(width - 1)) + (src & (width - 1)),
+                       false);
 }
-template <class T> T __shfl_up_sync(unsigned, T v, int d) {
-  return emu::exchange(v, emu::lane - d, emu::lane < d);
+template <class T> T __shfl_up_sync(unsigned, T v, int d, int width = 32) {
+  const int pos = emu::lane & (width - 1);
+  return emu::exchange(v, emu::lane - d, pos < d);
 }
-template <class T> T __shfl_down_sync(unsigned, T v, int d) {
-  return emu::exchange(v, emu::lane + d, emu::lane + d > 31);
+template <class T> T __shfl_down_sync(unsigned, T v, int d, int width = 32) {
+  const int pos = emu::lane & (width - 1);
+  return emu::exchange(v, emu::lane + d, pos + d >= width);
 }
 template <class T> T __shfl_xor_sync(unsigned, T v, int d) {
   return emu::exchange(v, emu::lane ^ d, false);
 }
 inline void __syncwarp() { emu::warp->bar.arrive_and_wait(); }
+inline void __syncthreads() { emu::block->bar.arrive_and_wait(); }
 inline unsigned __vcmpeq4(unsigned a, unsigned b) {
   unsigned r = 0;
   for (int c = 0; c < 4; ++c) {
@@ -134,27 +149,35 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
 """
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """affine_tb.cu built for the host against the emulated CUDA names."""
+def build_emulated(tmp_path_factory, source: str) -> ctypes.CDLL:
+    """A CUDA source of the port built for the host against the emulated
+    CUDA names (skips without g++)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
-    d = tmp_path_factory.mktemp("affine_emu")
+    name = source.rsplit("/", 1)[1][:-3]
+    d = tmp_path_factory.mktemp(f"{name}_emu")
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
-    with open(SOURCE) as fh:
+    with open(source) as fh:
         src = fh.read()
     # kernel<L><<<grid, block, smem, stream>>>(args) -> emu::launch(...)(args)
-    src = re.sub(r"(\w+<\w+>)<<<(.*?)>>>\(", r"emu::launch(\1, \2)(", src,
-                 flags=re.S)
-    (d / "affine_tb.cpp").write_text(
+    src = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(", r"emu::launch(\1, \2)(",
+                 src, flags=re.S)
+    (d / f"{name}.cpp").write_text(
         "#include <cuda_runtime.h>\n"
         "namespace { alignas(16) uint8_t smem_raw[1 << 18]; }\n" + src)
-    lib = d / "libaffine_emu.so"
+    lib = d / f"lib{name}_emu.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-w", f"-I{d}", "-o", str(lib), str(d / "affine_tb.cpp")],
+                    "-w", f"-I{d}", f"-I{source.rsplit('/', 1)[0]}", "-o",
+                    str(lib), str(d / f"{name}.cpp")],
                    check=True, capture_output=True)
-    so = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """affine_tb.cu built for the host against the emulated CUDA names."""
+    so = build_emulated(tmp_path_factory, SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
     for fn in (so.otter_affine_tb, so.otter_affine_tb_ckpt):
         fn.restype = I

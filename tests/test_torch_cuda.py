@@ -115,7 +115,35 @@ def test_myers_pool_cuda_matches_plain(cuda_device, n_words):
     assert got.cpu().tolist() == want.tolist()
 
 
-def test_myers_striped_cuda_matches_plain(cuda_device):
+@pytest.mark.parametrize("shape", K2.striped_shapes())
+def test_myers_striped_cuda_matches_plain(cuda_device, shape):
+    """K2 at every (G, q) its wrapper can pick equals its plain version
+    (exact): the longest pattern fills G q words (past 2048 bp from q = 2 at
+    G = 32), shorter ones leave lanes idle, patterns longer and shorter
+    than their texts, free begins and ends, jobs in many warps and in
+    job-length order, and a launch of one job."""
+    G, q = shape
+    rng = random.Random(76 + 64 * G + q)
+    m_max = 64 * G * q - rng.randint(0, 40)
+    jobs = [(_acgt(rng, m_max), _acgt(rng, rng.randint(100, 400)), 5, 7)]
+    for k in range(300):
+        p = _acgt(rng, rng.randint(1, min(m_max, 1500)))
+        t = _mutate(rng, p, 0.05) + _acgt(rng, rng.randint(0, 60))
+        tb, te = [(0, 0), (rng.randint(0, 60), 0), (0, rng.randint(0, 60)),
+                  (3, 4)][k % 4]
+        # every pattern within the first one's words
+        jobs.append((p, t, tb, te) if k % 3 else (t[:m_max], p, tb, te))
+    for sel in (jobs, jobs[:1]):
+        args = K2.oriented_inputs([j[:2] for j in sel], [j[2] for j in sel],
+                                  [j[3] for j in sel], cuda_device)
+        assert K2.striped_launch(args[4], args[3], args[7], G)[:2] == shape
+        before = K2.myers_striped_cuda.launches
+        got = K2.myers_striped_cuda(*args, group=G)
+        assert K2.myers_striped_cuda.launches == before + 1
+        assert torch.equal(got, K2.myers_striped_torch(*args))
+
+
+def test_myers_striped_cuda_ends_free_matches_oracle(cuda_device):
     """K2 on one-sided ends-free jobs of every kind, with patterns past
     2048 bp, equals its plain version and the numpy ends-free DP
     (exact)."""
@@ -206,22 +234,33 @@ def test_myers_banded_cuda_matches_plain(cuda_device, k):
         assert g >= d and (d > k or g == d)
 
 
-@pytest.mark.parametrize("k", [31, 255])
+@pytest.mark.parametrize("k", [31, 63, 130, 255, 511, 1023])
 def test_edit_banded_cuda_matches_plain(cuda_device, k):
-    """K7 on the card equals its plain version on every pair, INF lanes
-    included, and the native distance where <= k (exact)."""
+    """K7 on the card (the warp kernel to k = 511, the block kernel above)
+    equals its plain version on every pair, INF lanes included, and the
+    native distance where <= k (exact): N bases, unrelated pairs, a length
+    difference past k, an alignment along diagonal +min(k, 200), and a
+    launch of one pair."""
     rng = random.Random(700 + k)
     pairs = []
     for _ in range(200):
         s = "".join(rng.choice("ACGTN") for _ in range(rng.randint(1, 1500)))
         pairs.append((s, _mutate(rng, s, rng.random() * 0.1)))
-    a, bpad, mn = K7.pack_banded(pairs, k)
-    args = [_t(x, cuda_device) for x in (a, bpad, mn)]
-    got = K7.edit_banded(*args, k)
-    assert torch.equal(got, K7.edit_banded_torch(*args, k))
+    g = min(k, 200)
+    x = _acgt(rng, 4 * g + 40)
+    pairs += [(_acgt(rng, 900), _acgt(rng, 890)),
+              (_acgt(rng, 30), _acgt(rng, 31 + k)),
+              (x + _acgt(rng, g + 1), x[:20] + _acgt(rng, g) + x[20:])]
+    for sel in (pairs[:1], pairs):
+        a, bpad, mn = K7.pack_banded(sel, k)
+        args = [_t(y, cuda_device) for y in (a, bpad, mn)]
+        before = K7.edit_banded_cuda.launches
+        got = K7.edit_banded(*args, k)
+        assert K7.edit_banded_cuda.launches == before + 1
+        assert torch.equal(got, K7.edit_banded_torch(*args, k))
     want, _cells = edit_distance_batch(pairs, 8)
-    for g, d in zip(got.cpu().tolist(), want.tolist()):
-        assert d > k or g == d
+    for v, d in zip(got.cpu().tolist(), want.tolist()):
+        assert d > k or v == d
 
 
 def _affine_cases(rng, k):

@@ -1,0 +1,187 @@
+"""The CUDA sources of K7 (otter_tpu_torch/csrc/edit_banded.cu) and K2
+(csrc/myers_striped.cu) run on the CPU: g++ compiles each against the
+emulation of the CUDA surface in tests/test_torch_affine_emulated.py (one
+std::thread per CUDA thread; a warp meets at every shuffle, a block at every
+__syncthreads), and the kernels' results are held against the plain PyTorch
+versions, exactly. This checks the warp and block designs (the prefix-min
+scans, the lane-group pipeline and its carries, the job order) where there
+is no card; the card runs the same sources in tests/test_torch_cuda.py and
+chip_smoke.py."""
+
+import ctypes
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from otter_tpu_torch.kernels import edit_banded as K7
+from otter_tpu_torch.kernels import myers_striped as K2
+
+from test_torch_affine_emulated import build_emulated
+
+CSRC = K7.__file__.rsplit("/", 2)[0] + "/csrc/"
+CPU = torch.device("cpu")
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+@pytest.fixture(scope="module")
+def k7_emulated(tmp_path_factory):
+    so = build_emulated(tmp_path_factory, CSRC + "edit_banded.cu")
+    so.otter_edit_banded.restype = I
+    so.otter_edit_banded.argtypes = [P, P, P, I, I, P, I, P, P]
+    return so
+
+
+@pytest.fixture(scope="module")
+def k2_emulated(tmp_path_factory):
+    so = build_emulated(tmp_path_factory, CSRC + "myers_striped.cu")
+    so.otter_myers_striped.restype = I
+    so.otter_myers_striped.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I,
+                                       I, P, P]
+    return so
+
+
+def _seq(rng, n, alphabet="ACGT"):
+    return "".join(rng.choice(alphabet) for _ in range(n))
+
+
+def _mutate(rng, s, rate):
+    out = []
+    for ch in s:
+        r = rng.random()
+        if r < rate * 0.4:
+            out.append(rng.choice("ACGTN"))
+        elif r < rate * 0.7:
+            out += [ch, rng.choice("ACGT")]
+        elif r >= rate:
+            out.append(ch)
+    return "".join(out)
+
+
+def _k7_run(so, pairs, k):
+    a, bpad, mn = K7.pack_banded(pairs, k)
+    B, L = a.shape
+    W = 2 * (k + 1)
+    out = np.full(B, -7, dtype=np.int32)
+    scratch = np.zeros(W * B if W > K7.SMEM_LANES else 1, dtype=np.int32)
+    err = so.otter_edit_banded(a.ctypes.data, bpad.ctypes.data,
+                               mn.ctypes.data, L, k, out.ctypes.data, B,
+                               scratch.ctypes.data, None)
+    assert err == 0
+    want = K7.edit_banded_torch(*(torch.from_numpy(x) for x in (a, bpad, mn)),
+                                k).numpy()
+    return out, want
+
+
+# k -> (pairs, shortest, longest side): the warp kernel at L = 1, 2, 4, 12
+# and 32 lanes a thread, the block kernel with the row in shared memory
+# (766) and in device-memory scratch (16894); at both, diagonal +1 is the
+# first lane of a warp (192 threads of 8 lanes, 1024 of 33)
+K7_CASES = {7: (6, 5, 60), 31: (6, 10, 120), 63: (6, 20, 200),
+            130: (6, 50, 300), 511: (4, 50, 300), 766: (3, 100, 200),
+            16894: (2, 10, 24)}
+
+
+@pytest.mark.parametrize("k", list(K7_CASES))
+def test_k7_cuda_source_emulated_match_plain(k7_emulated, k):
+    """K7 as written for the card, on the emulated warps and blocks: equal
+    to the plain version on every pair (exact, INF included): N bases,
+    distances near k, unrelated sides (the band's edges reach the result),
+    a length difference past k, an empty side, identical sides; and a
+    launch of one pair."""
+    rng = random.Random(7000 + k)
+    count, lo, hi = K7_CASES[k]
+    pairs = []
+    for q in range(count):
+        s = _seq(rng, rng.randint(lo, hi), "ACGTN" if q % 2 else "ACGT")
+        pairs.append((s, _mutate(rng, s, [0.02, 0.3][q % 2]) or "N"))
+    # unrelated sides: a banded value far above k, which the lanes at the
+    # band's right edge reach (their "up" operand is INF)
+    u = hi if k > 130 else max(hi, 5 * k)
+    pairs += [(_seq(rng, u), _seq(rng, u - 3, "ACGTN")), ("", "ACGN"),
+              ("NNAC", "NNAC")]
+    # an insertion of g in the columns, then g + 1 more rows: the
+    # alignment runs along diagonal +g (at k <= 130 the band's right edge,
+    # whose "up" operand is INF) and crosses every lane boundary from
+    # diagonal 0 to +g in one row
+    g = min(k, 80 if k < 1000 else 6)
+    x = _seq(rng, 4 * g + 40)
+    pairs.append((x + _seq(rng, g + 1), x[:20] + _seq(rng, g) + x[20:]))
+    if k < 1000:  # a length difference of k + 1 or more: INF
+        far = k + 1 + rng.randint(0, 8)
+        pairs.append((_seq(rng, 20), _seq(rng, 20 + far, "ACGTN")))
+    got, want = _k7_run(k7_emulated, pairs, k)
+    assert np.array_equal(got, want)
+    assert (want < K7.INF).any() and ((want == K7.INF).any() or k > 1000)
+    got1, want1 = _k7_run(k7_emulated, pairs[:1], k)
+    assert np.array_equal(got1, want1)
+
+
+def _k2_jobs(rng, G, q):
+    """Oriented (pattern, text) jobs with tb / te: the longest pattern fills
+    G q words, the others leave lanes idle; patterns longer and shorter
+    than their texts (both orientations the engine sends), free begins and
+    ends, 1-char sides."""
+    m_max = 64 * G * q - rng.randint(0, 40)
+    jobs = [(_seq(rng, m_max), _seq(rng, rng.randint(20, 60)), 3, 4)]
+    for x in range(128 // G + 3):
+        m = rng.randint(1, min(m_max, 150))
+        p = _seq(rng, m)
+        t = _mutate(rng, p, 0.1).replace("N", "A") + _seq(rng,
+                                                          rng.randint(0, 20))
+        t = t[: rng.randint(1, 90)] or "C"
+        tb, te = [(0, 0), (rng.randint(0, len(t)), 0),
+                  (0, rng.randint(0, len(t))), (2, 3)][x % 4]
+        # every pattern within the first one's words
+        jobs.append((p, t, tb, te) if x % 3 else (t[:m_max], p, tb, te))
+    jobs.append(("A", "ACGTACGT", 0, 8))
+    return jobs
+
+
+def _k2_run(so, jobs, group):
+    pool, ip, it, nl, ml, tb, te, nw, tl = K2.oriented_inputs(
+        [j[:2] for j in jobs], [j[2] for j in jobs], [j[3] for j in jobs],
+        CPU)
+    G, q, order = K2.striped_launch(ml, nl, nw, group)
+    B = len(jobs)
+    out = torch.full((B,), -7, dtype=torch.int32)
+    err = so.otter_myers_striped(
+        pool.data_ptr(), pool.shape[1], ip.data_ptr(), it.data_ptr(),
+        nl.data_ptr(), ml.data_ptr(), tb.data_ptr(), te.data_ptr(),
+        out.data_ptr(), B, nw, tl, G, q,
+        None if order is None else order.data_ptr(), None)
+    assert err == 0
+    return (G, q), out, K2.myers_striped_torch(pool, ip, it, nl, ml, tb, te,
+                                               nw, tl)
+
+
+@pytest.mark.parametrize("shape", K2.striped_shapes())
+def test_k2_cuda_source_emulated_match_plain(k2_emulated, shape):
+    """K2 as written for the card, at every (G, q) its wrapper can pick, on
+    the emulated warps: equal to the plain version on every job (exact),
+    with jobs in two blocks (the last one part full), and in a launch of
+    one job."""
+    G, q = shape
+    rng = random.Random(200 + 64 * G + q)
+    jobs = _k2_jobs(rng, G, q)
+    got_shape, got, want = _k2_run(k2_emulated, jobs, G)
+    assert got_shape == shape
+    assert torch.equal(got, want)
+    _shape, got1, want1 = _k2_run(k2_emulated, jobs[:1], G)
+    assert torch.equal(got1, want1)
+
+
+def test_k2_shapes_cover_patterns_past_2048():
+    """Patterns over 2048 chars take a whole warp with q up to 16; short
+    launches put many lanes on each job, large ones fewer."""
+    assert K2.striped_shape(3, 2 * 33) == (32, 2)
+    assert K2.striped_shape(100000, 2 * 512) == (32, 16)
+    assert K2.striped_shape(10, 44)[0] == 32
+    assert K2.striped_shape(16384, 44)[0] < 32
+    shapes = K2.striped_shapes()
+    assert {G for G, _q in shapes} == set(K2.GROUPS)
+    assert {q for _G, q in shapes} == {1, 2, 4, 8, 16, 32}
+    assert (1, 32) in shapes and (32, 16) in shapes
+    with pytest.raises(ValueError):
+        K2.striped_shape(1, 4, group=3)
