@@ -17,10 +17,13 @@ exits non-zero:
    the native affine cigar ladder); then the time of the kernel and of the
    plain version on one workload of the shape the main path gives it, its
    band (or DP) Gcells/s and its bound; K2 also at every lane-group size G
-   on its timing set, K7 also at k = 1023 (its block kernel); K5 and K6
-   are swept over every band they have an instance for (k = 63, 127, 255,
-   511), K7 over k = 31 ... 1023 and K2 over every (G, q) shape its wrapper
-   can pick, exact;
+   on its timing set, K7 also at k = 1023 (its block kernel); K3 and K4 at
+   every lane-group size on their timing sets and on sets shaped like the
+   reference-default region's rungs (10 kb pairs at k = 63 and 511, K4 with
+   free begins up to 2 kb); K5 and K6 are swept over every band they have
+   an instance for (k = 63, 127, 255, 511), K7 over k = 31 ... 1023, K2
+   over every (G, q) shape its wrapper can pick and K3 / K4 over every
+   (G, q) theirs can, exact;
 4. small main path: the port's ``assemble`` on the card writes the same SAM
    and FASTA bytes as on an exact host engine (native C++ distances, host
    ends-free DP, native affine ladder);
@@ -28,7 +31,9 @@ exits non-zero:
    coverage 100, het alleles of 1.5 and 1.8 kb), with its rates; and a
    route-coverage run (4 loci with non-spanning reads, a 2.4 kb allele and
    reads with N bases; 2 loci with a 7.5 kb allele) that reaches every
-   kernel, checked for parity only.
+   kernel, checked for parity only; and one region at the reference's
+   defaults (coverage 200, 10 kb alleles: every pair goes to the K3
+   ladder), with its rates.
    Each runs on the card and on the host engine: byte-identical output.
    Every kernel's launch count is zeroed before the card runs and read
    after them; each must have launched. Then K2 is timed at the shape of
@@ -561,7 +566,7 @@ def kernel_k3(dev, rs) -> dict:
     check(err == 0 and oracle, "K3 disagrees with its plain version or the "
           "native distance")
 
-    # timing: 8,192 pairs of 2.3-2.5 kb reads of one allele at 0.2% error
+    # timing: 8,128 pairs of 2.3-2.5 kb reads of 32 alleles at 0.2% error
     seqs = []
     for _ in range(32):
         s = rand_acgt(rs, int(rs.integers(2300, 2501)))
@@ -575,10 +580,13 @@ def kernel_k3(dev, rs) -> dict:
     ms = time_ms(lambda: K3.myers_banded(pool, ip, it, nl, ml, 63, nw, tl), 3)
     plain_ms = time_ms(lambda: K3.myers_banded_torch(
         pool, ip, it, nl, ml, zero, zero, 63, nw, tl), 1)
+    want = K3.myers_banded_torch(pool, ip, it, nl, ml, zero, zero, 63, nw, tl)
     check(bool(torch.equal(
-        K3.myers_banded(pool, ip, it, nl, ml, 63, nw, tl),
-        K3.myers_banded_torch(pool, ip, it, nl, ml, zero, zero, 63, nw, tl))),
+        K3.myers_banded(pool, ip, it, nl, ml, 63, nw, tl), want)),
         "K3 disagrees with its plain version on the timing set")
+    banded_groups(lambda G: K3.myers_banded_cuda(pool, ip, it, nl, ml, 63,
+                                                 nw, tl, group=G),
+                  nl, None, 63, cells, want, "K3 timing set")
     return report("myers_banded", "K3 myers_banded (k 63, 255; band cells)",
                   len(pairs), cells, err == 0, oracle, ms, plain_ms, err,
                   nbytes(pool, ip, it, nl, ml) + 4 * len(ip))
@@ -620,18 +628,176 @@ def kernel_k4(dev, rs) -> dict:
     (pool, ip, it, nl, ml, tb, te, nw, tl), _cells = pool_args(
         dev, *text_side(tjobs))
     cells = float((nl.cpu().numpy() * (64 + 128)).sum())
+    tb_max = int(tb.max())
     ms = time_ms(lambda: K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, 63,
-                                            nw, tl), 3)
+                                            nw, tl, tb_max=tb_max), 3)
     plain_ms = time_ms(lambda: K4.myers_banded_torch(
         pool, ip, it, nl, ml, tb, te, 63, nw, tl), 1)
+    want = K4.myers_banded_torch(pool, ip, it, nl, ml, tb, te, 63, nw, tl)
     check(bool(torch.equal(
-        K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, 63, nw, tl),
-        K4.myers_banded_torch(pool, ip, it, nl, ml, tb, te, 63, nw, tl))),
+        K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, 63, nw, tl), want)),
         "K4 disagrees with its plain version on the timing set")
+    banded_groups(lambda G: K4.myers_banded_ef_cuda(
+        pool, ip, it, nl, ml, tb, te, 63, nw, tl, group=G, tb_max=tb_max),
+        nl, tb, 63, cells, want, "K4 timing set")
     return report("myers_banded_ef",
                   "K4 myers_banded_ef (k 63, 255; band cells)", len(jobs),
                   cells, err == 0, oracle, ms, plain_ms, err,
                   nbytes(pool, ip, it, nl, ml, tb, te) + 4 * len(ip))
+
+
+def banded_groups(fn, nlen, tb, k, cells, want, what) -> None:
+    """K3 / K4 on one launch's inputs at every lane-group size G the
+    window allows (q follows): ``fn(G)`` launches, each result equal to the
+    plain result ``want``, with its time."""
+    import torch
+
+    from otter_tpu_torch.kernels import myers_banded as K
+
+    tb_max = int(tb.max()) if tb is not None else 0
+    auto = K.banded_launch(nlen, tb, k, tb_max=tb_max)[:2]
+    window = K.banded_window(k, tb_max)
+    parts = []
+    for G in K.GROUPS:
+        if G * K.QMAX < window:
+            continue
+        check(bool(torch.equal(fn(G), want)), f"{what} at G = {G} disagrees "
+              "with its plain version")
+        ms = time_ms(lambda: fn(G), 3)
+        q = K.banded_shape(len(want), window, G)[1]
+        parts.append(f"(G {G}, q {q}) {ms:.3f} ms ({cells / ms / 1e6:.1f} "
+                     "band Gcells/s)")
+    log(f"{what}, {len(want)} jobs, window {window} blocks, by lane group "
+        f"(the wrapper picks G {auto[0]}, q {auto[1]}), each == plain: "
+        + "; ".join(parts))
+
+
+def refscale_reads(rs, n: int):
+    """Reads of the reference-default region: n reads of each allele of a
+    10 kb locus (the second with 100 CAG units more), at 0.2% error."""
+    a = rand_acgt(rs, 10000)
+    b = a + "CAG" * 100
+    return ([mutate(rs, a, 0.002) for _ in range(n)],
+            [mutate(rs, b, 0.002) for _ in range(n)])
+
+
+def banded_set(dev, what, pairs, k, tbs=None, tes=None) -> None:
+    """One K3 (``tbs`` None) or K4 launch on a set shaped like a main-path
+    rung: the plain version once (timed by events, no warm-up), the
+    kernel's time, exact agreement, band Gcells/s, bound, the jobs the rung
+    resolves, and every lane-group size."""
+    import torch
+
+    from otter_tpu_torch.kernels import myers_banded as K
+
+    (pool, ip, it, nl, ml, tb, te, nw, tl), _c = pool_args(dev, pairs, tbs,
+                                                          tes)
+    ef = tbs is not None
+    tb_max = max(tbs) if ef else 0
+    if not ef:
+        tb = te = torch.zeros_like(nl)
+    n = nl.cpu().numpy().astype(np.float64)
+    m = ml.cpu().numpy().astype(np.float64)
+    cells = float((n * np.minimum(m, 2 * k + 2 + tb.cpu().numpy())).sum())
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    want = K.myers_banded_torch(pool, ip, it, nl, ml, tb, te, k, nw, tl)
+    t1.record()
+    t1.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+
+    def fn(G=None):
+        if ef:
+            return K.myers_banded_ef_cuda(pool, ip, it, nl, ml, tb, te, k,
+                                          nw, tl, group=G, tb_max=tb_max)
+        return K.myers_banded_cuda(pool, ip, it, nl, ml, k, nw, tl, group=G)
+
+    ms = time_ms(fn, 3)
+    check(bool(torch.equal(fn(), want)), f"{what} disagrees with its plain "
+          "version")
+    key = "myers_banded_ef" if ef else "myers_banded"
+    bound_ms, bound_by = bound(key, cells, nbytes(pool, ip, it, nl, ml)
+                               + (nbytes(tb, te) if ef else 0) + 4 * len(ip))
+    log(f"{what}: {len(pairs)} jobs at k {k}, {int((want <= k).sum())} "
+        f"resolved (<= k); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, == "
+        f"plain (max |diff| 0); {cells / ms / 1e6:.2f} band Gcells/s; bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.2f}% of it")
+    banded_groups(fn, nl, tb if ef else None, k, cells, want, what)
+
+
+def banded_refscale_sets(dev) -> None:
+    """K3 at the shapes the reference-default region gives its ladder
+    (cov 200, 10 kb alleles, 0.2% error): the 9,900 same-allele pairs at
+    k = 63, the 10,000 cross-allele pairs (a 300 bp length gap) at
+    k = 511; and K4 with wide free begins: 2,048 reads that miss up to
+    2 kb of their allele's start against the allele, at k = 63."""
+    rs = np.random.default_rng(21)
+    ra, rb = refscale_reads(rs, 100)
+    iu, ju = np.triu_indices(100, 1)
+    same = [(r[i], r[j]) for r in (ra, rb) for i, j in zip(iu, ju)]
+    cross = [(x, y) for x in ra for y in rb]
+    banded_set(dev, "K3 refscale same-allele set", same, 63)
+    banded_set(dev, "K3 refscale cross-allele set", cross, 511)
+    allele = rb[0]
+    pairs, tbs = [], []
+    for _ in range(2048):
+        cut = int(rs.integers(0, 2001))
+        pairs.append((mutate(rs, allele[cut:], 0.002), allele))
+        tbs.append(cut)
+    banded_set(dev, "K4 wide-tb set (tb 0-2000)", pairs, 63, tbs,
+               [0] * len(tbs))
+
+
+def banded_sweep(dev) -> None:
+    """K3 and K4 at every (G, q) their wrapper can pick, exact against the
+    plain version: 150 jobs of 200-1500 bp (K4 with free ends of up to 40
+    chars that differ by job), a pattern far longer than its text (2^30)
+    and unrelated sides, at a band whose window is the largest of 2, 3, 5,
+    9 and 17 blocks within G q, so it spans lanes and slides across their
+    boundaries; and a launch of one job at each."""
+    import torch
+
+    from otter_tpu_torch.kernels import myers_banded as K
+
+    rs = np.random.default_rng(14)
+    by_window = {}
+    for G, q in K.banded_shapes():
+        wt = max(w for w in (2, 3, 5, 9, 17) if w <= G * q)
+        by_window.setdefault(wt, []).append((G, q))
+    for wt, shapes in sorted(by_window.items()):
+        jobs = []
+        for x in range(150):
+            p = rand_acgt(rs, int(rs.integers(200, 1501)))
+            tb, te = (int(v) for v in rs.integers(0, 41, 2))
+            jobs.append((p, rand_acgt(rs, tb) + mutate(
+                rs, p, [0.005, 0.05, 0.3][x % 3]) + rand_acgt(rs, te), tb,
+                te))
+        short = rand_acgt(rs, 30)
+        jobs += [(rand_acgt(rs, 1100) + short, short, 0, 0),
+                 (rand_acgt(rs, 1400), rand_acgt(rs, 1390), 0, 0)]
+        for ef, k in ((False, 32 * (wt - 2) + 31), (True, 32 * (wt - 2) + 11)):
+            (pool, ip, it, nl, ml, tb, te, nw, tl), _c = pool_args(
+                dev, [j[:2] for j in jobs], [j[2] for j in jobs],
+                [j[3] for j in jobs])
+            if not ef:
+                tb = te = torch.zeros_like(nl)
+            want = K.myers_banded_torch(pool, ip, it, nl, ml, tb, te, k, nw,
+                                        tl)
+            for G, q in shapes:
+                for what, sl in (("all", slice(None)), ("one job",
+                                                         slice(0, 1))):
+                    a = (pool, ip[sl], it[sl], nl[sl], ml[sl])
+                    got = (K.myers_banded_ef_cuda(*a, tb[sl], te[sl], k, nw,
+                                                  tl, group=G, q=q) if ef else
+                           K.myers_banded_cuda(*a, k, nw, tl, group=G, q=q))
+                    check(bool(torch.equal(got, want[sl])),
+                          f"K{4 if ef else 3} at (G {G}, q {q}) disagrees "
+                          f"with its plain version ({what})")
+    log(f"K3 / K4 sweep: (G, q) = {K.banded_shapes()}, 152 jobs each at a "
+        f"window of 2, 3, 5, 9 or 17 blocks and a launch of one job: all "
+        f"== plain (max |diff| 0)")
 
 
 def kernel_k7(dev, rs) -> dict:
@@ -901,9 +1067,11 @@ def phase_kernels(dev) -> dict:
            "edit_banded": kernel_k7(dev, rs),
            "affine_tb": kernel_k5(dev, rs),
            "affine_tb_ckpt": kernel_k6(dev, rs)}
+    banded_refscale_sets(dev)
     affine_sweep(dev)
     edit_sweep(dev)
     striped_sweep(dev)
+    banded_sweep(dev)
     return out
 
 
@@ -1052,6 +1220,9 @@ def phase_full(tmp: str) -> dict:
     bam_c, bed_c = tandem_repeat_loci(tmp, n_regions=2, cov=24, err=0.002,
                                       expansion=2000, region_len=1500,
                                       seed=79, name="long")
+    bam_d, bed_d = tandem_repeat_loci(tmp, n_regions=1, cov=200, err=0.002,
+                                      expansion=100, region_len=10000,
+                                      seed=77, name="refscale")
     log(f"fixtures built in {time.perf_counter() - t0:.2f} s")
     wrappers = cuda_wrappers()
     for fn in wrappers.values():
@@ -1062,7 +1233,9 @@ def phase_full(tmp: str) -> dict:
             ("cell hifi-tr-1.5k", bam_a, bed_a, 32, True),
             ("route coverage (parity only)", bam_b, bed_b, 4, False),
             ("route coverage, 7.5 kb allele (parity only)", bam_c, bed_c, 2,
-             False)):
+             False),
+            ("refscale region (reference defaults: cov 200, 10 kb)", bam_d,
+             bed_d, 1, True)):
         counters[name] = run_cell(name, bam, bed, n, rates)
         cell = {}
         for k, fn in wrappers.items():  # the host run launches nothing
@@ -1126,18 +1299,28 @@ def phase_profile(tmp: str) -> None:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
+
+    def done(what: str) -> None:
+        log(f"-- {what} done at {time.perf_counter() - t_start:.1f} s")
+
     phase_environment()
     dev = torch.device("cuda", 0)
     phase_build()
+    done("phase 2")
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:
             phase_profile(tmp)
         return 0
     timings = phase_kernels(dev)
+    done("phase 3")
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)
+        done("phase 4")
         launches, cell = phase_full(tmp)
+        done("phase 5")
     k2_small_launch(dev, cell["jobs_k2"])
+    done("K2 at the cell's launch shape")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name], **timings[name]}
                for name, (src, rep) in KERNELS.items()]

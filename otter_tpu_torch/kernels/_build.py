@@ -112,11 +112,12 @@ def load() -> ctypes.CDLL:
                                                 _P, _P]
             lib.otter_myers_banded.restype = _I
             lib.otter_myers_banded.argtypes = [_P, _I, _P, _P, _P, _P, _I,
-                                               _P, _I, _I, _I, _P, _P]
+                                               _P, _I, _I, _I, _I, _I, _P,
+                                               _P]
             lib.otter_myers_banded_ef.restype = _I
             lib.otter_myers_banded_ef.argtypes = [_P, _I, _P, _P, _P, _P, _P,
-                                                  _P, _I, _P, _I, _I, _I, _P,
-                                                  _P]
+                                                  _P, _I, _P, _I, _I, _I, _I,
+                                                  _I, _P, _P]
             lib.otter_edit_banded.restype = _I
             lib.otter_edit_banded.argtypes = [_P, _P, _P, _I, _I, _P, _I, _P,
                                               _P]

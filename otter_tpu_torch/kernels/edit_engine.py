@@ -366,7 +366,8 @@ class EditDistanceEngine:
             seln = np.nonzero(now)[0]
             d = myers_banded_ef(pool, ip[sel], it[sel], nl[sel], ml[sel],
                                 tbt[sel], tet[sel], k, nw,
-                                int(n[seln].max())).cpu().numpy()
+                                int(n[seln].max()),
+                                tb_max=max(tbs[i] for i in seln)).cpu().numpy()
             ok = d <= k
             out[idx[seln[ok]]] = d[ok]
             left[seln[ok]] = False

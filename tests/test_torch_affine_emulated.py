@@ -1,7 +1,7 @@
 """The CUDA source of K5 and K6 (otter_tpu_torch/csrc/affine_tb.cu) run on
 the CPU: g++ compiles it against a small emulation of the CUDA surface it
 uses (each block a set of std::threads, one per CUDA thread; a warp meets
-at every shuffle and __syncwarp, a block at every __syncthreads; the
+at every shuffle, vote and __syncwarp, a block at every __syncthreads; the
 emulation also serves tests/test_torch_distance_emulated.py), and the
 kernels' results are held
 against the plain PyTorch version, exactly. This checks the warp-level
@@ -40,7 +40,7 @@ CUDA_RUNTIME_H = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(n)
 #define __shared__
 
@@ -70,7 +70,7 @@ inline thread_local Dim3 threadIdx, blockIdx, blockDim;
 namespace emu {
 struct Warp {
   std::barrier<> bar{32};
-  uint64_t slot[32];
+  uint64_t slot[2][32];
 };
 struct Block {
   std::barrier<> bar;
@@ -79,20 +79,28 @@ struct Block {
 inline thread_local Warp* warp;
 inline thread_local Block* block;
 inline thread_local int lane;
-// every lane posts its value, then reads the source lane's (or its own)
+inline thread_local int parity;
+// every lane posts its value, then reads the source lane's (or its own);
+// posts alternate between two slot sets, so one barrier a call suffices (a
+// lane posts to a set again only after every lane has passed the barrier
+// that follows its read of it)
 template <class T>
 T exchange(T v, int src, bool keep) {
   uint64_t x = 0;
   std::memcpy(&x, &v, sizeof(T));
-  warp->slot[lane] = x;
+  uint64_t* slot = warp->slot[parity];
+  parity ^= 1;
+  slot[lane] = x;
   warp->bar.arrive_and_wait();
-  const uint64_t y = warp->slot[keep ? lane : src];
-  warp->bar.arrive_and_wait();
+  const uint64_t y = slot[keep ? lane : src];
   T r;
   std::memcpy(&r, &y, sizeof(T));
   return r;
 }
-// kernel<<<grid, block, smem, stream>>>(args): blocks one after another
+// kernel<<<grid, block, smem, stream>>>(args): blocks one after another;
+// a block's warps together, or one after another with EMU_WARPS_IN_TURN
+// (fewer threads contend at each barrier; only for a source whose warps
+// share nothing)
 template <class F>
 auto launch(F f, int grid, int block, int, void*) {
   return [=](auto... args) {
@@ -100,19 +108,27 @@ auto launch(F f, int grid, int block, int, void*) {
       std::vector<std::unique_ptr<Warp>> warps;
       for (int q = 0; q < (block + 31) / 32; ++q) warps.emplace_back(new Warp);
       Block blk(block);
-      std::vector<std::thread> threads;
-      for (int t = 0; t < block; ++t) {
-        threads.emplace_back([&, t, g]() {
-          threadIdx.x = t;
-          blockIdx.x = g;
-          blockDim.x = block;
-          warp = warps[t / 32].get();
-          emu::block = &blk;
-          lane = t % 32;
-          f(args...);
-        });
+#ifdef EMU_WARPS_IN_TURN
+      const int turn = 32;
+#else
+      const int turn = block;
+#endif
+      for (int t0 = 0; t0 < block; t0 += turn) {
+        std::vector<std::thread> threads;
+        for (int t = t0; t < t0 + turn && t < block; ++t) {
+          threads.emplace_back([&, t, g]() {
+            threadIdx.x = t;
+            blockIdx.x = g;
+            blockDim.x = block;
+            warp = warps[t / 32].get();
+            emu::block = &blk;
+            lane = t % 32;
+            parity = 0;
+            f(args...);
+          });
+        }
+        for (auto& th : threads) th.join();
       }
-      for (auto& th : threads) th.join();
     }
   };
 }
@@ -134,6 +150,15 @@ template <class T> T __shfl_down_sync(unsigned, T v, int d, int width = 32) {
 template <class T> T __shfl_xor_sync(unsigned, T v, int d) {
   return emu::exchange(v, emu::lane ^ d, false);
 }
+inline int __any_sync(unsigned, int p) {
+  uint64_t* slot = emu::warp->slot[emu::parity];
+  emu::parity ^= 1;
+  slot[emu::lane] = p != 0;
+  emu::warp->bar.arrive_and_wait();
+  int any = 0;
+  for (int q = 0; q < 32; ++q) any |= slot[q] != 0;
+  return any;
+}
 inline void __syncwarp() { emu::warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { emu::block->bar.arrive_and_wait(); }
 inline unsigned __vcmpeq4(unsigned a, unsigned b) {
@@ -149,9 +174,13 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
 """
 
 
-def build_emulated(tmp_path_factory, source: str) -> ctypes.CDLL:
+def build_emulated(tmp_path_factory, source: str,
+                   warps_in_turn: bool = False) -> ctypes.CDLL:
     """A CUDA source of the port built for the host against the emulated
-    CUDA names (skips without g++)."""
+    CUDA names (skips without g++). ``warps_in_turn`` runs a block's warps
+    one after another instead of together: faster, but blind to warps that
+    overwrite each other's shared memory, so only for a source whose warps
+    share nothing."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -167,9 +196,10 @@ def build_emulated(tmp_path_factory, source: str) -> ctypes.CDLL:
         "#include <cuda_runtime.h>\n"
         "namespace { alignas(16) uint8_t smem_raw[1 << 18]; }\n" + src)
     lib = d / f"lib{name}_emu.so"
+    turns = ["-DEMU_WARPS_IN_TURN"] if warps_in_turn else []
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-w", f"-I{d}", f"-I{source.rsplit('/', 1)[0]}", "-o",
-                    str(lib), str(d / f"{name}.cpp")],
+                    "-w", *turns, f"-I{d}", f"-I{source.rsplit('/', 1)[0]}",
+                    "-o", str(lib), str(d / f"{name}.cpp")],
                    check=True, capture_output=True)
     return ctypes.CDLL(str(lib))
 

@@ -208,10 +208,11 @@ def test_assemble_cuda_byte_identical(cuda_device, tmp_path, is_fa):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("k", [63, 127])
+@pytest.mark.parametrize("k", [63, 127, 511, 2047])
 def test_myers_banded_cuda_matches_plain(cuda_device, k):
     """K3 and K4 on the card equal their plain versions on every job, above
-    k too, and the numpy DP where <= k (exact)."""
+    k too, at the wrapper's pick and at every (G, q) whose window covers the
+    band (a launch of one job too), and the numpy DP where <= k (exact)."""
     rng = random.Random(300 + k)
     jobs = []
     for _ in range(200):
@@ -223,12 +224,25 @@ def test_myers_banded_cuda_matches_plain(cuda_device, k):
                               [j[3] for j in jobs], cuda_device)
     pool, ip, it, nl, ml, tb, te, nw, tl = args
     zero = torch.zeros_like(nl)
-    got3 = K34.myers_banded(pool, ip, it, nl, ml, k, nw, tl)
-    assert torch.equal(got3, K34.myers_banded_torch(pool, ip, it, nl, ml,
-                                                    zero, zero, k, nw, tl))
+    want3 = K34.myers_banded_torch(pool, ip, it, nl, ml, zero, zero, k, nw,
+                                   tl)
+    want4 = K34.myers_banded_torch(pool, ip, it, nl, ml, tb, te, k, nw, tl)
+    before = K34.myers_banded_cuda.launches
+    assert torch.equal(K34.myers_banded(pool, ip, it, nl, ml, k, nw, tl),
+                       want3)
+    assert K34.myers_banded_cuda.launches == before + 1
     got4 = K34.myers_banded_ef(pool, ip, it, nl, ml, tb, te, k, nw, tl)
-    assert torch.equal(got4, K34.myers_banded_torch(pool, ip, it, nl, ml,
-                                                    tb, te, k, nw, tl))
+    assert torch.equal(got4, want4)
+    window = K34.banded_window(k, int(tb.max()))
+    for G, q in K34.banded_shapes():
+        if G * q < window:
+            continue
+        for sl in (slice(None), slice(0, 1)):
+            a = (pool, ip[sl], it[sl], nl[sl], ml[sl])
+            assert torch.equal(K34.myers_banded_cuda(*a, k, nw, tl, group=G,
+                                                     q=q), want3[sl])
+            assert torch.equal(K34.myers_banded_ef_cuda(
+                *a, tb[sl], te[sl], k, nw, tl, group=G, q=q), want4[sl])
     for (p, t, b, e), g in zip(jobs, got4.cpu().tolist()):
         d = edit_distance_ends_free(p, t, 0, 0, b, e)
         assert g >= d and (d > k or g == d)
