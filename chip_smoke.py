@@ -11,7 +11,7 @@ exits non-zero:
 2. build: compiles the kernels (``otter_tpu_torch/csrc/*.cu``) with nvcc;
 3. kernels: each kernel of the assemble path (K1 Myers pool, K2 striped
    Myers, K3 / K4 banded Myers, K7 banded edit DP, K5 / K6 affine
-   traceback with all bits / with checkpoints)
+   traceback with all bits / with checkpoints, K8 scaled KDE)
    equals its plain PyTorch version on the card, exactly, and agrees with
    the package's host oracles (native C++ distances, the numpy ends-free DP,
    the native affine cigar ladder); then the time of the kernel and of the
@@ -23,7 +23,10 @@ exits non-zero:
    free begins up to 2 kb); K5 and K6 are swept over every band they have
    an instance for (k = 63, 127, 255, 511), K7 over k = 31 ... 1023, K2
    over every (G, q) shape its wrapper can pick and K3 / K4 over every
-   (G, q) theirs can, exact;
+   (G, q) theirs can, exact; K8 on three sets (hifi-tr-1.5k's batch of 32
+   regions x 4,950 values, the refscale region's 1 x 19,900, the largest
+   batch 256 x 19,900): m equal, s within a relative 1e-6 and the same
+   certified decisions as its plain version;
 4. small main path: the port's ``assemble`` on the card writes the same SAM
    and FASTA bytes as on an exact host engine (native C++ distances, host
    ends-free DP, native affine ladder);
@@ -34,10 +37,23 @@ exits non-zero:
    kernel, checked for parity only; and one region at the reference's
    defaults (coverage 200, 10 kb alleles: every pair goes to the K3
    ladder), with its rates.
-   Each runs on the card and on the host engine: byte-identical output.
+   Each runs on the card and on the host engine: byte-identical output
+   (the host engine's runs, minutes of native C++ distances, go to a side
+   process, ``--host-oracle``, started before phase 3).
    Every kernel's launch count is zeroed before the card runs and read
-   after them; each must have launched. Then K2 is timed at the shape of
-   its launch in hifi-tr-1.5k (that run's ``jobs_k2`` count of jobs).
+   after them; each must have launched, and K8 in hifi-tr-1.5k and the
+   refscale region. Then those two cells with the device KDE on and off
+   (``OTTER_TPU_MESH_KDE=0``) in turns, their walls and KDE phase seconds;
+   then K2 is timed at the shape of its launch in hifi-tr-1.5k (that run's
+   ``jobs_k2`` count of jobs);
+6. the other entry points: ``genotype`` on bench_e2e's 64-sample x 32-region
+   and 500-sample x 8-region cohorts, the card's GEMM route and the host
+   BLAS route (``OTTER_TPU_GENOTYPE_DEVICE=0``) in turns with their
+   regions/s, each VCF byte-identical to the port's sequential host path;
+   ``compare`` on a seeded truth / query pair on the card's engine,
+   byte-identical to the scalar path; ``vcf2mat`` on the 64-sample VCF and
+   ``wgat`` on a seeded aligned assembly, checked against what their inputs
+   hold.
 
 The line before the last is a JSON object with each kernel's launches in
 phase 5, its largest disagreement with its plain version, its times and its
@@ -55,7 +71,9 @@ written once) over 3.35 TB/s and its int32 operations over the card's
 int32 rate (132 SMs x 64 lanes x the SM clock ``nvidia-smi`` reports as
 ``clocks.max.sm``), with the operations per DP cell in ``OPS_PER_CELL``,
 counted from the sources; phase 2 prints the compiled SASS counts beside
-them.
+them. K8's operations are its exps over the MUFU rate (132 x 16 a clock)
+or its ``KDE_F32_OPS`` f32 operations a (cell, value) over the f32 rate
+(132 x 128 a clock), whichever is longer.
 """
 
 from __future__ import annotations
@@ -91,6 +109,8 @@ KERNELS = {
                   "otter_tpu/kernels/affine_pallas.py:99"),
     "affine_tb_ckpt": ("otter_tpu_torch/csrc/affine_tb.cu",
                        "otter_tpu/kernels/affine_pallas.py:395"),
+    "kde_scaled": ("otter_tpu_torch/csrc/kde_scaled.cu",
+                   "otter_tpu/parallel/mesh.py:111 (jnp)"),
 }
 
 
@@ -103,6 +123,10 @@ OPS_PER_CELL = {"myers_pool": 36 / 64, "myers_striped": 36 / 64,
                 "affine_tb_ckpt": 28.0}
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES = 132 * 64
+MUFU_LANES = 132 * 16
+F32_LANES = 132 * 128
+# K8's f32 operations a (cell, value): sub, div, 2 mul, max, sub, add
+KDE_F32_OPS = 7
 # set by phase 1: the SM clock (Hz)
 CARD = {"sm_hz": None}
 
@@ -113,8 +137,9 @@ def log(msg: str) -> None:
 
 def cuda_wrappers() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts its launches."""
-    from otter_tpu_torch.kernels import affine_tb, edit_banded, myers_banded
-    from otter_tpu_torch.kernels import myers_pallas, myers_striped
+    from otter_tpu_torch.kernels import affine_tb, edit_banded, kde_scaled
+    from otter_tpu_torch.kernels import myers_banded, myers_pallas
+    from otter_tpu_torch.kernels import myers_striped
 
     return {"myers_pool": myers_pallas.myers_pool_cuda,
             "myers_striped": myers_striped.myers_striped_cuda,
@@ -122,7 +147,8 @@ def cuda_wrappers() -> dict:
             "myers_banded_ef": myers_banded.myers_banded_ef_cuda,
             "edit_banded": edit_banded.edit_banded_cuda,
             "affine_tb": affine_tb.affine_tb_cuda,
-            "affine_tb_ckpt": affine_tb.affine_tb_ckpt_cuda}
+            "affine_tb_ckpt": affine_tb.affine_tb_ckpt_cuda,
+            "kde_scaled": kde_scaled.kde_scaled_cuda}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -143,6 +169,22 @@ def time_ms(fn, reps: int) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def time_once(fn):
+    """(ms, result) of one run of ``fn()`` by CUDA events, no warm-up: the
+    plain versions take seconds, so a first call's overhead is noise, and
+    their result is the reference the kernel is held against."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1), out
 
 
 def rand_acgt(rs: np.random.Generator, n: int) -> str:
@@ -232,7 +274,9 @@ def phase_environment() -> str:
         capture_output=True, text=True, check=True, timeout=60)
     CARD["sm_hz"] = float(clk.stdout.strip().splitlines()[0]) * 1e6
     log(f"SM clock max {CARD['sm_hz'] / 1e6:.0f} MHz: int32 rate "
-        f"{INT32_LANES * CARD['sm_hz'] / 1e12:.2f} Tops/s")
+        f"{INT32_LANES * CARD['sm_hz'] / 1e12:.2f} Tops/s, f32 "
+        f"{F32_LANES * CARD['sm_hz'] / 1e12:.2f} Tops/s, MUFU (exp) "
+        f"{MUFU_LANES * CARD['sm_hz'] / 1e12:.2f} Tops/s")
     log(f"torch device: {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
     return card
@@ -383,8 +427,8 @@ def kernel_k1(dev, rs) -> dict:
         dev, [(seqs[i], seqs[j]) for i, j in zip(iu[pick], ju[pick])])
     a = (pool, ip, it, nl, ml, 64, tl)
     ms = time_ms(lambda: K1.myers_pool(*a), 5)
-    plain_ms = time_ms(lambda: K1.myers_pool_torch(*a), 1)
-    check(bool(torch.equal(K1.myers_pool(*a), K1.myers_pool_torch(*a))),
+    plain_ms, want = time_once(lambda: K1.myers_pool_torch(*a))
+    check(bool(torch.equal(K1.myers_pool(*a), want)),
           "K1 disagrees with its plain version on the timing set")
     return report("myers_pool", "K1 myers_pool", len(pairs), cells, err == 0,
                   oracle, ms, plain_ms, err,
@@ -451,8 +495,7 @@ def kernel_k2(dev, rs) -> dict:
                       len(al) - cut))
     a, cells = pool_args(dev, *text_side(tjobs))
     ms = time_ms(lambda: K2.myers_striped(*a), 3)
-    plain_ms = time_ms(lambda: K2.myers_striped_torch(*a), 1)
-    want = K2.myers_striped_torch(*a)
+    plain_ms, want = time_once(lambda: K2.myers_striped_torch(*a))
     check(bool(torch.equal(K2.myers_striped(*a), want)),
           "K2 disagrees with its plain version on the timing set")
     moved = nbytes(*(x for x in a if isinstance(x, torch.Tensor)))
@@ -501,9 +544,8 @@ def k2_small_launch(dev, n_jobs: int) -> None:
         tjobs.append((mutate(rs, al[:cut], 0.002), al, 0, 0, 0,
                       len(al) - cut))
     a, cells = pool_args(dev, *text_side(tjobs))
-    want = K2.myers_striped_torch(*a)
+    plain_ms, want = time_once(lambda: K2.myers_striped_torch(*a))
     ms = time_ms(lambda: K2.myers_striped(*a), 5)
-    plain_ms = time_ms(lambda: K2.myers_striped_torch(*a), 1)
     check(bool(torch.equal(K2.myers_striped(*a), want)),
           "K2 disagrees with its plain version at the cell's launch shape")
     bound_ms, bound_by = bound("myers_striped", cells, nbytes(
@@ -578,9 +620,8 @@ def kernel_k3(dev, rs) -> dict:
     zero = torch.zeros_like(nl)
     cells = float((nl.cpu().numpy() * 128).sum())
     ms = time_ms(lambda: K3.myers_banded(pool, ip, it, nl, ml, 63, nw, tl), 3)
-    plain_ms = time_ms(lambda: K3.myers_banded_torch(
-        pool, ip, it, nl, ml, zero, zero, 63, nw, tl), 1)
-    want = K3.myers_banded_torch(pool, ip, it, nl, ml, zero, zero, 63, nw, tl)
+    plain_ms, want = time_once(lambda: K3.myers_banded_torch(
+        pool, ip, it, nl, ml, zero, zero, 63, nw, tl))
     check(bool(torch.equal(
         K3.myers_banded(pool, ip, it, nl, ml, 63, nw, tl), want)),
         "K3 disagrees with its plain version on the timing set")
@@ -631,9 +672,8 @@ def kernel_k4(dev, rs) -> dict:
     tb_max = int(tb.max())
     ms = time_ms(lambda: K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, 63,
                                             nw, tl, tb_max=tb_max), 3)
-    plain_ms = time_ms(lambda: K4.myers_banded_torch(
-        pool, ip, it, nl, ml, tb, te, 63, nw, tl), 1)
-    want = K4.myers_banded_torch(pool, ip, it, nl, ml, tb, te, 63, nw, tl)
+    plain_ms, want = time_once(lambda: K4.myers_banded_torch(
+        pool, ip, it, nl, ml, tb, te, 63, nw, tl))
     check(bool(torch.equal(
         K4.myers_banded_ef(pool, ip, it, nl, ml, tb, te, 63, nw, tl), want)),
         "K4 disagrees with its plain version on the timing set")
@@ -699,14 +739,8 @@ def banded_set(dev, what, pairs, k, tbs=None, tes=None) -> None:
     n = nl.cpu().numpy().astype(np.float64)
     m = ml.cpu().numpy().astype(np.float64)
     cells = float((n * np.minimum(m, 2 * k + 2 + tb.cpu().numpy())).sum())
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0.record()
-    want = K.myers_banded_torch(pool, ip, it, nl, ml, tb, te, k, nw, tl)
-    t1.record()
-    t1.synchronize()
-    plain_ms = t0.elapsed_time(t1)
+    plain_ms, want = time_once(lambda: K.myers_banded_torch(
+        pool, ip, it, nl, ml, tb, te, k, nw, tl))
 
     def fn(G=None):
         if ef:
@@ -831,9 +865,8 @@ def kernel_k7(dev, rs) -> dict:
     a = [int32_tensor(x, dev) for x in K7.pack_banded(tpairs, 63)]
     cells = float(sum(max(len(x), len(y)) for x, y in tpairs) * 128)
     ms = time_ms(lambda: K7.edit_banded(*a, 63), 3)
-    plain_ms = time_ms(lambda: K7.edit_banded_torch(*a, 63), 1)
-    check(bool(torch.equal(K7.edit_banded(*a, 63),
-                           K7.edit_banded_torch(*a, 63))),
+    plain_ms, want = time_once(lambda: K7.edit_banded_torch(*a, 63))
+    check(bool(torch.equal(K7.edit_banded(*a, 63), want)),
           "K7 disagrees with its plain version on the timing set")
     out = report("edit_banded", "K7 edit_banded (k 63, 511; band cells)",
                  len(pairs), cells, err == 0, oracle, ms, plain_ms, err,
@@ -848,9 +881,8 @@ def kernel_k7(dev, rs) -> dict:
     a = [int32_tensor(x, dev) for x in K7.pack_banded(wpairs, 1023)]
     wcells = float(sum(max(len(x), len(y)) for x, y in wpairs) * 2048)
     wms = time_ms(lambda: K7.edit_banded(*a, 1023), 3)
-    wplain = time_ms(lambda: K7.edit_banded_torch(*a, 1023), 1)
-    check(bool(torch.equal(K7.edit_banded(*a, 1023),
-                           K7.edit_banded_torch(*a, 1023))),
+    wplain, want = time_once(lambda: K7.edit_banded_torch(*a, 1023))
+    check(bool(torch.equal(K7.edit_banded(*a, 1023), want)),
           "K7 disagrees with its plain version at k 1023")
     wb, wby = bound("edit_banded", wcells, nbytes(*a) + 4 * len(wpairs))
     log(f"K7 at k 1023 (block kernel), {len(wpairs)} pairs of 2.5-3 kb: "
@@ -944,9 +976,8 @@ def kernel_k5(dev, rs) -> dict:
          for x in K5.pack_affine_jobs(tjobs, 2048, 63)]
     cells = float(sum(len(j[0]) for j in tjobs) * 128)
     ms = time_ms(lambda: K5.affine_tb(*a, 63, tw), 3)
-    plain_ms = time_ms(lambda: K5.affine_tb_torch(*a, 63, tw), 1)
+    plain_ms, (o2, e2) = time_once(lambda: K5.affine_tb_torch(*a, 63, tw))
     o1, e1 = K5.affine_tb(*a, 63, tw)
-    o2, e2 = K5.affine_tb_torch(*a, 63, tw)
     check(bool(torch.equal(o1, o2) and torch.equal(e1, e2)),
           "K5 disagrees with its plain version on the timing set")
     return report("affine_tb", "K5 affine_tb (k 63, 255; band cells)",
@@ -987,9 +1018,8 @@ def kernel_k6(dev, rs) -> dict:
          for x in K6.pack_affine_jobs(tjobs, 4096, 127)]
     cells = float(sum(len(j[0]) for j in tjobs) * 256)
     ms = time_ms(lambda: K6.affine_tb_ckpt(*a, 127, tw), 3)
-    plain_ms = time_ms(lambda: K6.affine_tb_torch(*a, 127, tw), 1)
+    plain_ms, (o2, e2) = time_once(lambda: K6.affine_tb_torch(*a, 127, tw))
     o1, e1 = K6.affine_tb_ckpt(*a, 127, tw)
-    o2, e2 = K6.affine_tb_torch(*a, 127, tw)
     check(bool(torch.equal(o1, o2) and torch.equal(e1, e2)),
           "K6 disagrees with its plain version on the timing set")
     # K5 on the same members: the two kernels at the K5 / K6 boundary
@@ -1057,21 +1087,116 @@ def affine_sweep(dev) -> None:
         log(f"K5 / K6 sweep k {k}: a launch of one member == plain")
 
 
+# K8's sets: (name, regions, values a region)
+KDE_SETS = (("hifi-tr-1.5k batch", 32, 4950), ("refscale region", 1, 19900),
+            ("largest batch", 256, 19900))
+KDE_RADIUS = 4  # the certification's window at max_error 0.01
+
+
+def kde_values(rs, R: int, n: int) -> np.ndarray:
+    """(R, n) pair distances shaped like a two-allele locus at 0.2% read
+    error: two thirds near 0.004 (same-allele pairs), a third near 0.17."""
+    near = rs.normal(0.004, 0.0015, (R, n - n // 3))
+    far = rs.normal(0.17, 0.01, (R, n // 3))
+    return np.clip(np.concatenate([near, far], axis=1), 0.0,
+                   1.0).astype(np.float32)
+
+
+def kde_bound(evals: float, moved: int):
+    """(bound ms, what bounds it) for ``evals`` (cell, value) evaluations:
+    the exps over the MUFU rate or the f32 operations over the f32 rate,
+    whichever is longer, against the bytes over the memory rate."""
+    t_ops = max(evals / MUFU_LANES, evals * KDE_F32_OPS / F32_LANES) \
+        / CARD["sm_hz"] * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kde_decisions(m, s, values, bws):
+    """Per region: certified or not, and where certified the density's
+    extrema indices (the clustering decision surface)."""
+    from otter_tpu_torch.ops.kde import (kde_decision_certified_scaled_batch,
+                                         kde_maximas)
+
+    certs = kde_decision_certified_scaled_batch(
+        list(zip(m, s)), values, bws, KDE_RADIUS)
+    return [(ok, None if d is None else [[i for i, _v in side] for side in
+                                         kde_maximas(KDE_RADIUS, d)])
+            for ok, d in certs]
+
+
+def kernel_k8(dev, rs) -> dict:
+    """K8 against its plain version on the card on each of KDE_SETS: m
+    equal, s within a relative 1e-6, the same certified decisions; times
+    and bound. Returns the JSON fields of the first set (the shape of
+    hifi-tr-1.5k's launch)."""
+    import torch
+
+    from otter_tpu_torch.kernels import kde_scaled as K8
+    from otter_tpu_torch.ops.kde import kde_grid
+
+    xs = torch.from_numpy(kde_grid(0.0025).astype(np.float32)).to(dev)
+    G = xs.shape[0]
+    out = None
+    for name, R, n in KDE_SETS:
+        n_pad = 1 << (n - 1).bit_length()
+        V = np.zeros((R, n_pad), dtype=np.float32)
+        V[:, :n] = kde_values(rs, R, n)
+        bw = np.where(np.arange(R) % 2, 0.015, 0.01).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev)
+                for a in (V, np.full(R, n, dtype=np.int32), bw)] + [xs]
+        m, s = K8.kde_scaled_cuda(*args, n_max=n)
+        m_p, s_p = K8.kde_scaled_torch(*args)
+        same_m = bool(torch.equal(m, m_p))
+        rel = float(((s - s_p).abs() / s_p).max())
+        err = float(max((m - m_p).abs().max(), (s - s_p).abs().max()))
+        values = [V[r, :n].astype(np.float64) for r in range(R)]
+        t0 = time.perf_counter()
+        dec = kde_decisions(m.cpu().numpy(), s.cpu().numpy(), values, bw)
+        dec_p = kde_decisions(m_p.cpu().numpy(), s_p.cpu().numpy(), values,
+                              bw)
+        cert_s = time.perf_counter() - t0
+        check(same_m and rel <= 1e-6 and dec == dec_p,
+              f"K8 disagrees with its plain version on the {name} set (m "
+              f"equal {same_m}, s rel {rel:.3g}, decisions equal "
+              f"{dec == dec_p})")
+        ms = time_ms(lambda: K8.kde_scaled_cuda(*args, n_max=n), 5)
+        plain_ms, _out = time_once(lambda: K8.kde_scaled_torch(*args))
+        evals = float(R * n * G)
+        moved = 4 * R * n + nbytes(*args[1:]) + 8 * R * G
+        bound_ms, bound_by = kde_bound(evals, moved)
+        log(f"K8 kde_scaled, {name} ({R} regions x {n} values, G {G}): m "
+            f"equal {same_m}, s max rel diff {rel:.3g} (tolerance 1e-6), max "
+            f"|diff| {err:.3g}; certified {sum(ok for ok, _d in dec)} of {R} "
+            f"regions, decisions equal {dec == dec_p} (host certification "
+            f"{cert_s:.2f} s for both); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms ({evals / ms / 1e9:.2f} G evaluations/s "
+            f"kernel); bound {bound_ms:.4f} ms by {bound_by}, "
+            f"{100 * bound_ms / ms:.2f}% of it; library call: none")
+        if out is None:
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    return out
+
+
 def phase_kernels(dev) -> dict:
     log("== phase 3: kernels against their plain versions and oracles")
     rs = np.random.default_rng(3)
-    out = {"myers_pool": kernel_k1(dev, rs),
-           "myers_striped": kernel_k2(dev, rs),
-           "myers_banded": kernel_k3(dev, rs),
-           "myers_banded_ef": kernel_k4(dev, rs),
-           "edit_banded": kernel_k7(dev, rs),
-           "affine_tb": kernel_k5(dev, rs),
-           "affine_tb_ckpt": kernel_k6(dev, rs)}
-    banded_refscale_sets(dev)
-    affine_sweep(dev)
-    edit_sweep(dev)
-    striped_sweep(dev)
-    banded_sweep(dev)
+    t0 = time.perf_counter()
+    out = {}
+    for key, fn in (("myers_pool", kernel_k1), ("myers_striped", kernel_k2),
+                    ("myers_banded", kernel_k3),
+                    ("myers_banded_ef", kernel_k4),
+                    ("edit_banded", kernel_k7), ("affine_tb", kernel_k5),
+                    ("affine_tb_ckpt", kernel_k6), ("kde_scaled", kernel_k8)):
+        out[key] = fn(dev, rs)
+        log(f"-- {key} checked, {time.perf_counter() - t0:.1f} s into phase 3")
+    for fn in (banded_refscale_sets, affine_sweep, edit_sweep, striped_sweep,
+               banded_sweep):
+        fn(dev)
+        log(f"-- {fn.__name__} done, {time.perf_counter() - t0:.1f} s into "
+            "phase 3")
     return out
 
 
@@ -1169,9 +1294,79 @@ def phase_small(tmp: str) -> None:
               "host engine")
 
 
-def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool):
-    """The port on the card, then the host engine: byte-identical output.
-    Returns the card run's counters."""
+# phase 5's cells: (name, tandem_repeat_loci arguments, with rates)
+CELLS = (
+    ("cell hifi-tr-1.5k",
+     dict(n_regions=32, cov=100, err=0.002, expansion=100, region_len=1500,
+          seed=77, name="smoke"), True),
+    ("route coverage (parity only)",
+     dict(n_regions=4, cov=100, err=0.002, expansion=300, region_len=1500,
+          seed=78, name="routes", partial=0.2, n_bases=2), False),
+    ("route coverage, 7.5 kb allele (parity only)",
+     dict(n_regions=2, cov=24, err=0.002, expansion=2000, region_len=1500,
+          seed=79, name="long"), False),
+    ("refscale region (reference defaults: cov 200, 10 kb)",
+     dict(n_regions=1, cov=200, err=0.002, expansion=100, region_len=10000,
+          seed=77, name="refscale"), True),
+)
+
+
+def cell_fixtures(tmp: str) -> list:
+    """Phase 5's inputs under ``tmp``: (bam, bed) in CELLS order."""
+    from otter_tpu_torch.utils.synth import tandem_repeat_loci
+
+    t0 = time.perf_counter()
+    out = [tandem_repeat_loci(tmp, **kw) for _name, kw, _rates in CELLS]
+    log(f"phase 5 fixtures built in {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def start_host_oracle(tmp: str, fixtures: list) -> subprocess.Popen:
+    """Phase 5's host-engine runs (the byte-identity oracle, minutes of
+    native C++ distances) in a side process, started before phase 3 so they
+    run while the card works; the caller stops it if it is still running
+    at the end."""
+    args = [sys.executable, os.path.abspath(__file__), "--host-oracle", tmp]
+    for bam, bed in fixtures:
+        args += [bam, bed]
+    with open(os.path.join(tmp, "host_oracle.log"), "w") as fh:
+        return subprocess.Popen(args, stdout=fh, stderr=subprocess.STDOUT,
+                                cwd=REPO)
+
+
+def host_oracle_main(argv: list) -> int:
+    """``--host-oracle DIR BAM BED [BAM BED ...]``: each cell on the exact
+    host engine; writes DIR/host_<i>.sam and its wall in DIR/host_<i>.wall."""
+    out_dir, rest = argv[0], argv[1:]
+    for i in range(0, len(rest), 2):
+        t0 = time.perf_counter()
+        text = run(rest[i], rest[i + 1], HostBackend())
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"host_{i // 2}.sam"), "w") as fh:
+            fh.write(text)
+        with open(os.path.join(out_dir, f"host_{i // 2}.wall"), "w") as fh:
+            fh.write(repr(wall))
+    return 0
+
+
+def host_oracle_result(oracle: subprocess.Popen, tmp: str, i: int):
+    """(output, wall s) of cell ``i`` on the host engine, after the side
+    process has ended; raises if it failed."""
+    rc = oracle.wait()
+    if rc != 0:
+        with open(os.path.join(tmp, "host_oracle.log")) as fh:
+            raise RuntimeError(f"host oracle failed ({rc}):\n"
+                               f"{fh.read()[-4000:]}")
+    with open(os.path.join(tmp, f"host_{i}.sam")) as fh:
+        text = fh.read()
+    with open(os.path.join(tmp, f"host_{i}.wall")) as fh:
+        return text, float(fh.read())
+
+
+def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool,
+             want: str, host_wall: float):
+    """The port on the card against the host engine's output ``want``:
+    byte-identical. Returns the card run's counters."""
     import torch
 
     from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
@@ -1184,14 +1379,12 @@ def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     snap = metrics.snapshot()
-    t0 = time.perf_counter()
-    want = run(bam, bed, HostBackend())
-    host_wall = time.perf_counter() - t0
     c = backend.engine.counters()
     body = [l for l in got.splitlines() if l and not l.startswith("@")]
     log(f"{name}: {n_regions} regions, {len(body)} alleles, identical to the "
         f"host engine: {got == want}")
     log(f"{name}: counters {json.dumps(c)}")
+    log(f"{name}: {kde_summary(snap)}")
     check(got == want, f"{name}: card output differs from the host engine")
     if rates:
         pairs = c["pairs_k1"] + c["pairs_k3"] + c["pairs_k2"] + c["pairs_k7"]
@@ -1200,52 +1393,272 @@ def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool):
         log(f"{name}: wall {wall:.3f} s, {n_regions / wall:.3f} regions/s, "
             f"{pairs / wall:.1f} pairs/s, {c['cells'] / wall / 1e9:.3f} "
             f"Gcells/s (Myers DP cells) end to end; host engine wall "
-            f"{host_wall:.3f} s")
+            f"{host_wall:.3f} s (in the side process, beside phase 3)")
         log(f"{name}: phase seconds {json.dumps(phases, sort_keys=True)}")
     return c
 
 
-def phase_full(tmp: str) -> dict:
-    from otter_tpu_torch.utils.synth import tandem_repeat_loci
+KDE_PHASES = ("kde_device", "kde_certify", "kde_f64_fallback", "kde_f64")
 
+
+def kde_summary(snap: dict) -> str:
+    """The KDE counters and phase seconds of a metrics snapshot."""
+    counts = {k: int(snap.get(f"count.{k}", 0)) for k in (
+        "kde_device_regions", "kde_f64_fallback_regions")}
+    phases = {k: round(snap.get(f"time.{k}", 0.0), 4) for k in KDE_PHASES}
+    return f"KDE {json.dumps(counts)}, seconds {json.dumps(phases)}"
+
+
+def kde_on_off(name: str, bam: str, bed: str) -> None:
+    """A cell on the card with the device KDE on (the default route) and
+    off (OTTER_TPU_MESH_KDE=0), in turns on, off, off, on: each run's wall
+    and KDE phase seconds. Output is byte-identical across the four."""
+    import torch
+
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.utils import metrics
+
+    texts = set()
+    for kde in ("on", "off", "off", "on"):
+        if kde == "off":
+            os.environ["OTTER_TPU_MESH_KDE"] = "0"
+        metrics.reset()
+        t0 = time.perf_counter()
+        try:
+            texts.add(run(bam, bed, TorchDistBackend("cuda")))
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("OTTER_TPU_MESH_KDE", None)
+        wall = time.perf_counter() - t0
+        log(f"{name}, device KDE {kde}: wall {wall:.3f} s; "
+            f"{kde_summary(metrics.snapshot())}")
+    check(len(texts) == 1, f"{name}: output differs with the device KDE "
+          "on and off")
+
+
+def phase_full(tmp: str, fixtures: list, oracle) -> dict:
     log("== phase 5: full-size main path")
-    t0 = time.perf_counter()
-    bam_a, bed_a = tandem_repeat_loci(tmp, n_regions=32, cov=100, err=0.002,
-                                      expansion=100, region_len=1500,
-                                      seed=77, name="smoke")
-    bam_b, bed_b = tandem_repeat_loci(tmp, n_regions=4, cov=100, err=0.002,
-                                      expansion=300, region_len=1500,
-                                      seed=78, name="routes", partial=0.2,
-                                      n_bases=2)
-    bam_c, bed_c = tandem_repeat_loci(tmp, n_regions=2, cov=24, err=0.002,
-                                      expansion=2000, region_len=1500,
-                                      seed=79, name="long")
-    bam_d, bed_d = tandem_repeat_loci(tmp, n_regions=1, cov=200, err=0.002,
-                                      expansion=100, region_len=10000,
-                                      seed=77, name="refscale")
-    log(f"fixtures built in {time.perf_counter() - t0:.2f} s")
     wrappers = cuda_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     launches = dict.fromkeys(wrappers, 0)
     counters = {}
-    for name, bam, bed, n, rates in (
-            ("cell hifi-tr-1.5k", bam_a, bed_a, 32, True),
-            ("route coverage (parity only)", bam_b, bed_b, 4, False),
-            ("route coverage, 7.5 kb allele (parity only)", bam_c, bed_c, 2,
-             False),
-            ("refscale region (reference defaults: cov 200, 10 kb)", bam_d,
-             bed_d, 1, True)):
-        counters[name] = run_cell(name, bam, bed, n, rates)
+    for i, ((name, kw, rates), (bam, bed)) in enumerate(zip(CELLS,
+                                                           fixtures)):
+        want, host_wall = host_oracle_result(oracle, tmp, i)
+        counters[name] = run_cell(name, bam, bed, kw["n_regions"], rates,
+                                  want, host_wall)
         cell = {}
         for k, fn in wrappers.items():  # the host run launches nothing
             cell[k] = fn.launches - launches[k]
             launches[k] = fn.launches
         log(f"{name}: kernel launches {json.dumps(cell)}")
+        if rates:
+            check(cell["kde_scaled"] > 0, f"{name}: K8 did not launch")
     log(f"kernel launches in phase 5: {json.dumps(launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
+    kde_on_off("cell hifi-tr-1.5k", *fixtures[0])
+    kde_on_off("refscale region", *fixtures[3])
     return launches, counters["cell hifi-tr-1.5k"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the other entry points
+# ---------------------------------------------------------------------------
+
+
+def genotype_text(bam, bed, fa, device="cuda", batched=True):
+    """(wall s, VCF text, metrics snapshot) of one port genotype run."""
+    import torch
+
+    from otter_tpu_torch.config import OtterOpts
+    from otter_tpu_torch.models.genotype import genotype
+    from otter_tpu_torch.utils import metrics
+
+    p = OtterOpts()
+    p.device = device
+    out = io.StringIO()
+    metrics.reset()
+    t0 = time.perf_counter()
+    genotype(p, bam, bed, fa, out=out, batched=batched)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out.getvalue(), metrics.snapshot()
+
+
+def genotype_cohort(tmp: str, name: str, n_samples: int, n_regions: int,
+                    seed: int):
+    """One cohort of bench_e2e's genotype cells: the card's GEMM route and
+    the host-BLAS route (OTTER_TPU_GENOTYPE_DEVICE=0) in turns (card, host,
+    host, card) after a warm-up, each VCF byte-identical to the port's
+    sequential host path; regions/s of both. Returns the VCF's and the
+    BED's paths."""
+    from otter_tpu_torch.utils.synth import cohort_fixture
+
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    bam, bed, fa = cohort_fixture(d, n_samples, n_regions, seed)
+    t_seq, want, _snap = genotype_text(bam, bed, fa, "cpu", batched=False)
+    genotype_text(bam, bed, fa)  # warm-up: cuBLAS and the native library
+    walls = {"card": [], "host BLAS": []}
+    gemm = {}
+    for route in ("card", "host BLAS", "host BLAS", "card"):
+        if route == "host BLAS":
+            os.environ["OTTER_TPU_GENOTYPE_DEVICE"] = "0"
+        try:
+            wall, text, snap = genotype_text(bam, bed, fa)
+        finally:
+            os.environ.pop("OTTER_TPU_GENOTYPE_DEVICE", None)
+        check(text == want, f"{name}: the {route} route's VCF differs from "
+              "the sequential host path")
+        walls[route].append(wall)
+        gemm[route] = {k[5:]: round(v, 4) for k, v in snap.items()
+                       if k.startswith("time.genotype_")}
+    rows = sum(1 for l in want.splitlines() if l and not l.startswith("#"))
+    check(rows == n_regions, f"{name}: {rows} VCF rows for {n_regions} "
+          "regions")
+    log(f"{name} ({n_samples} samples x {n_regions} regions, "
+        f"{2 * n_samples + 1} alleles a region): VCF identical to the "
+        f"sequential host path on both routes ({rows} rows)")
+    for route, ws in walls.items():
+        log(f"{name} {route} route: walls {', '.join(f'{w:.3f}' for w in ws)}"
+            f" s, {n_regions / min(ws):.2f} regions/s (best); phase seconds "
+            f"{json.dumps(gemm[route], sort_keys=True)}")
+    log(f"{name} sequential host path: wall {t_seq:.3f} s, "
+        f"{n_regions / t_seq:.2f} regions/s")
+    vcf = os.path.join(d, f"{name}.vcf")
+    with open(vcf, "w") as fh:
+        fh.write(want)
+    return vcf, bed
+
+
+def compare_entry(tmp: str) -> None:
+    """compare on a seeded truth / query pair (32 regions of 0.3-2.5 kb
+    alleles, N bases and N alleles among them): the pooled call on the
+    card's engine, byte-identical to the scalar path; pairs and kernel
+    launches, counted from 0 just before the card run."""
+    import torch
+
+    from otter_tpu_torch.config import OtterOpts
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.models.compare import compare
+    from otter_tpu_torch.utils.synth import compare_fixture
+
+    d = os.path.join(tmp, "compare")
+    os.makedirs(d)
+    truth, query, bed = compare_fixture(d, 32, seed=31)
+    p = OtterOpts()
+    backend = TorchDistBackend("cuda")
+    wrappers = cuda_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    got = io.StringIO()
+    t0 = time.perf_counter()
+    compare(p, bed, truth, query, out=got, dist_backend=backend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    want = io.StringIO()
+    t0 = time.perf_counter()
+    compare(p, bed, truth, query, out=want, pooled=False)
+    t_scalar = time.perf_counter() - t0
+    c = backend.engine.counters()
+    pairs = c["pairs_k1"] + c["pairs_k3"] + c["pairs_k2"] + c["pairs_k7"]
+    log(f"compare: {got.getvalue().count(chr(10))} TSV rows, {pairs} engine "
+        f"pairs ({json.dumps({k: c[k] for k in ('pairs_k1', 'pairs_k3', 'pairs_k2', 'pairs_k7')})}), "
+        f"kernel launches {json.dumps(launched)}; identical to the scalar "
+        f"path: {got.getvalue() == want.getvalue()}; wall {wall:.3f} s on "
+        f"the card, scalar path {t_scalar:.3f} s")
+    check(got.getvalue() == want.getvalue() and pairs > 0 and launched,
+          "compare: the card's TSV differs from the scalar path")
+
+
+def vcf2mat_entry(vcf: str, bed: str) -> None:
+    """vcf2mat of a genotype VCF: one row per allele (REF and each ALT),
+    region, index, GC, length, HSD and the 65 3-mer usages."""
+    from otter_tpu_torch.config import OtterOpts
+    from otter_tpu_torch.models.vcf2mat import vcf2mat
+
+    alleles = 0
+    with open(vcf) as fh:
+        for line in fh:
+            if not line.startswith("#"):
+                f = line.split("\t")
+                alleles += 1 + (f[4] != ".") * len(f[4].split(","))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    vcf2mat(OtterOpts(), bed, vcf, 3, out=out)
+    wall = time.perf_counter() - t0
+    rows = out.getvalue().splitlines()
+    check(len(rows) == alleles and all(len(r.split("\t")) == 70
+                                       for r in rows),
+          f"vcf2mat: {len(rows)} rows for {alleles} alleles")
+    log(f"vcf2mat: {len(rows)} rows of 70 columns for the {alleles} alleles "
+        f"of the 64-sample VCF, {wall:.3f} s")
+
+
+def wgat_entry(tmp: str) -> None:
+    """wgat on a seeded aligned assembly: three contigs over a 60 kb
+    reference (one with a 30 bp deletion, one soft-clipped at its start)
+    and 60 regions; every region inside a contig and clear of both events
+    gives the reference's sequence (offset 1,0), the one over the clip is
+    skipped, the one over the deletion loses 30 bp."""
+    from otter_tpu_torch.config import OtterOpts
+    from otter_tpu_torch.io.bam import BAM_CDEL, BAM_CMATCH, BAM_CSOFT_CLIP
+    from otter_tpu_torch.models.wgat import wgat
+    from otter_tpu_torch.utils.synth import read_record, write_bam
+
+    import random
+
+    rng = random.Random(41)
+    ref = "".join(rng.choice("ACGT") for _ in range(60000))
+    clip = "".join(rng.choice("ACGT") for _ in range(500))
+    recs = [read_record("ctg_0", 1000, ref[1000:20000], [(19000, BAM_CMATCH)]),
+            read_record("ctg_1", 20000, ref[20000:30000] + ref[30030:39000],
+                        [(10000, BAM_CMATCH), (30, BAM_CDEL),
+                         (8970, BAM_CMATCH)]),
+            read_record("ctg_2", 40000, clip + ref[40000:59000],
+                        [(500, BAM_CSOFT_CLIP), (19000, BAM_CMATCH)])]
+    d = os.path.join(tmp, "wgat")
+    os.makedirs(d)
+    bam = os.path.join(d, "asm.bam")
+    write_bam(bam, len(ref), recs)
+    regions = [(s, s + 60) for s in range(1500, 59000, 1000)]
+    regions += [(29990, 30050), (39990, 40050)]
+    bed = os.path.join(d, "asm.bed")
+    with open(bed, "w") as fh:
+        fh.writelines(f"chr1\t{a}\t{b}\n" for a, b in regions)
+    p = OtterOpts()
+    p.read_group = "ASM1"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    wgat(p, bam, bed, out=out)
+    wall = time.perf_counter() - t0
+    seqs = {}
+    for line in out.getvalue().splitlines():
+        if not line.startswith("@"):
+            f = line.split("\t")
+            seqs[f[0].split("#")[1].rsplit("_", 1)[0]] = f[9]
+    clean = [(a, b) for a, b in regions
+             if (1000 < a and b <= 20000 or 20000 < a and b <= 30000
+                 or 30030 < a and b <= 39000 or 40000 < a and b <= 59000)]
+    ok = all(seqs.get(f"chr1:{a}-{b}") == ref[a - 1 : b] for a, b in clean)
+    dele = seqs.get("chr1:29990-30050", "")
+    check(ok and len(seqs) == len(clean) + 1 and len(dele) == 61 - 30
+          and "chr1:39990-40050" not in seqs,
+          f"wgat: {len(seqs)} alleles, clean regions right {ok}")
+    log(f"wgat: {len(seqs)} alleles for {len(regions)} regions (the clipped "
+        f"one skipped), {len(clean)} equal to the reference, the deletion's "
+        f"{len(dele)} bp; {wall:.3f} s")
+
+
+def phase_entry_points(tmp: str) -> None:
+    log("== phase 6: the other entry points")
+    vcf, bed = genotype_cohort(tmp, "genotype64", 64, 32, 5)
+    genotype_cohort(tmp, "genotype500", 500, 8, 23)
+    compare_entry(tmp)
+    vcf2mat_entry(vcf, bed)
+    wgat_entry(tmp)
 
 
 def phase_profile(tmp: str) -> None:
@@ -1297,6 +1710,8 @@ def phase_profile(tmp: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--host-oracle"]:
+        return host_oracle_main(sys.argv[2:])
     import torch
 
     t_start = time.perf_counter()
@@ -1312,15 +1727,24 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_profile(tmp)
         return 0
-    timings = phase_kernels(dev)
-    done("phase 3")
     with tempfile.TemporaryDirectory() as tmp:
-        phase_small(tmp)
-        done("phase 4")
-        launches, cell = phase_full(tmp)
-        done("phase 5")
-    k2_small_launch(dev, cell["jobs_k2"])
-    done("K2 at the cell's launch shape")
+        fixtures = cell_fixtures(tmp)
+        oracle = start_host_oracle(tmp, fixtures)
+        try:
+            timings = phase_kernels(dev)
+            done("phase 3")
+            phase_small(tmp)
+            done("phase 4")
+            launches, cell = phase_full(tmp, fixtures, oracle)
+            done("phase 5")
+            k2_small_launch(dev, cell["jobs_k2"])
+            done("K2 at the cell's launch shape")
+            phase_entry_points(tmp)
+            done("phase 6")
+        finally:
+            if oracle.poll() is None:
+                oracle.kill()
+            oracle.wait()
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name], **timings[name]}
                for name, (src, rep) in KERNELS.items()]

@@ -10,8 +10,10 @@ nothing from it. Layering, as in the JAX package:
   native.py the threaded C++ host library (csrc/otter_native.cpp)
   kernels/  hand-written CUDA kernels (csrc/*.cu) with plain PyTorch
             versions beside them, and the engines that route work to them
-  models/   the batched assemble pipeline on those engines
-  cli/      ``python -m otter_tpu_torch.cli.main assemble ...``
+  parallel/ the pooled device KDE over a batch of regions
+  models/   the batched assemble and genotype pipelines on those engines,
+            compare, wgat and vcf2mat
+  cli/      ``python -m otter_tpu_torch.cli.main {assemble,genotype,...}``
 
 It never imports ``jax``.
 """

@@ -1,0 +1,117 @@
+"""Kernel K8: scaled Gaussian KDE over the clustering grid.
+
+Counterpart of ``kde_tree_step_scaled`` in ``otter_tpu/parallel/mesh.py``
+(jnp, not Pallas). Inputs as that function takes them: ``vals`` (R, n_pad)
+f32 per-region pair distances (n_pad a power of two >= nvals), ``nvals``
+(R,) int32 real counts (>= 1), ``bw`` (R,) f32 bandwidths, ``xs`` (G,) f32
+grid. The result is ``(m, s)``, each (R, G) f32: per cell the largest
+exponent m = max -(z z) / 2 over the real values (z = (x - v) / h) and
+s = sum exp(e - m), summed in the halving order the host certification
+models (``ops/kde.py::kde_decision_certified_scaled``).
+
+``kde_scaled_cuda`` launches the hand-written kernel
+(``csrc/kde_scaled.cu``), ``kde_scaled_torch`` is the plain PyTorch version
+of the same arithmetic (the halving loop as in the JAX function), and
+``kde_scaled`` picks one by device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .myers_pallas import data_ptr
+
+# elements of one (regions, G, n_pad) slab of the plain version
+_PLAIN_SLAB = 1 << 24
+
+
+def _check(vals, nvals, bw, xs) -> None:
+    R, n_pad = vals.shape
+    if vals.dtype != torch.float32 or bw.dtype != torch.float32 \
+            or xs.dtype != torch.float32 or nvals.dtype != torch.int32:
+        raise ValueError("vals, bw and xs must be float32, nvals int32")
+    if n_pad & (n_pad - 1) or nvals.shape != (R,) or bw.shape != (R,) \
+            or xs.dim() != 1:
+        raise ValueError("vals must be (R, n_pad) with n_pad a power of two, "
+                         "nvals and bw (R,), xs (G,)")
+    if not (vals.device == nvals.device == bw.device == xs.device):
+        raise ValueError("all inputs must be on one device")
+
+
+def kde_scaled_torch(vals: torch.Tensor, nvals: torch.Tensor,
+                     bw: torch.Tensor, xs: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K8: the JAX function's ops on (R, G, n_pad) slabs of
+    a few regions at a time, the sum as its halving loop."""
+    _check(vals, nvals, bw, xs)
+    R, n_pad = vals.shape
+    G = xs.shape[0]
+    lane = torch.arange(n_pad, device=vals.device)
+    m_out = torch.empty((R, G), dtype=torch.float32, device=vals.device)
+    s_out = torch.empty_like(m_out)
+    step = max(1, _PLAIN_SLAB // (G * n_pad))
+    for r0 in range(0, R, step):
+        sl = slice(r0, min(R, r0 + step))
+        h = bw[sl, None, None]
+        mask = lane[None, None, :] < nvals[sl, None, None]
+        z = (xs[None, :, None] - vals[sl, None, :]) / h
+        e = -(z * z) / 2.0
+        e = torch.where(mask, e, float("-inf"))
+        m = e.max(dim=2).values
+        t = torch.exp(e - m[:, :, None])
+        t = torch.where(mask, t, 0.0)
+        w = n_pad
+        while w > 1:
+            t = t[..., : w // 2] + t[..., w // 2 : w]
+            w //= 2
+        m_out[sl] = m
+        s_out[sl] = t[..., 0]
+    return m_out, s_out
+
+
+def kde_scaled_cuda(vals: torch.Tensor, nvals: torch.Tensor,
+                    bw: torch.Tensor, xs: torch.Tensor,
+                    n_max: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8 on the card (``csrc/kde_scaled.cu``): one launch on the current
+    stream, no synchronisation. ``n_max``: the largest nvals, which the
+    caller knows on the host (default n_pad); it sizes the kernel's
+    shared-memory stage. Raises on bad inputs or a refused launch."""
+    from . import _build
+
+    _check(vals, nvals, bw, xs)
+    if not vals.is_cuda:
+        raise ValueError("kde_scaled_cuda takes CUDA tensors")
+    R, n_pad = vals.shape
+    G = xs.shape[0]
+    m = torch.empty((R, G), dtype=torch.float32, device=vals.device)
+    s = torch.empty_like(m)
+    if R == 0 or G == 0:
+        return m, s
+    lib = _build.load()
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    with torch.cuda.device(vals.device):
+        err = lib.otter_kde_scaled(data_ptr(vals), n_pad, data_ptr(nvals),
+                                   data_ptr(bw), data_ptr(xs), G, R,
+                                   n_pad if n_max is None else n_max,
+                                   data_ptr(m), data_ptr(s), stream)
+    _build.check(lib, err, "kde_scaled_cuda")
+    kde_scaled_cuda.launches += 1
+    return m, s
+
+
+kde_scaled_cuda.launches = 0
+
+
+def kde_scaled(vals: torch.Tensor, nvals: torch.Tensor, bw: torch.Tensor,
+               xs: torch.Tensor, n_max: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8 by device: the CUDA kernel for CUDA tensors (it launches or
+    raises), the plain version for CPU tensors."""
+    if vals.is_cuda:
+        return kde_scaled_cuda(vals, nvals, bw, xs, n_max)
+    if vals.device.type == "cpu":
+        return kde_scaled_torch(vals, nvals, bw, xs)
+    raise ValueError(f"no K8 version for device {vals.device}")

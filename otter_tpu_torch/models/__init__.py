@@ -1,1 +1,2 @@
-"""Workload pipelines on the PyTorch engine (``assemble``)."""
+"""Workload pipelines on the PyTorch engine (``assemble``, ``genotype``,
+``compare``, ``wgat``, ``vcf2mat``)."""

@@ -10,10 +10,12 @@ the ic tag.
 Regions are prepared on the host; every region's all-vs-all pair workload
 (and its reassignment pairs and ends-free jobs) goes to the distance engine
 in one launch per batch, and the batch's consensus cigars go to the affine
-traceback kernel in one launch. Everything downstream of the exact integer
-distances is float64 host math (KDE, hclust), so output is byte-identical
-to the JAX package's ``--device host`` path (emission stays in region
-order).
+traceback kernel in one launch. The batch's per-region KDE goes to kernel
+K8 on the card once it is large (``_use_device_kde``), and every region's
+clustering decisions are certified against the float64 KDE, which
+recomputes any region they do not hold for; hclust is float64 host math.
+So output is byte-identical to the JAX package's ``--device host`` path
+(emission stays in region order).
 
 Single process: the multi-host sharding of the JAX package is not ported.
 """
@@ -48,10 +50,9 @@ from ..kernels.edit_engine import IndexedPairs
 
 DEVICES = ("cuda", "cpu")
 
-# settings that select a device path of the JAX package (device KDE, device
-# POA and hclust) which the port has not reached yet
-_JAX_ONLY_SETTINGS = ("OTTER_TPU_MESH_KDE", "OTTER_TPU_POA_DEVICE",
-                      "OTTER_TPU_HCLUST_DEVICE")
+# settings that select a device path of the JAX package (device POA and
+# hclust) which the port has not reached yet
+_JAX_ONLY_SETTINGS = ("OTTER_TPU_POA_DEVICE", "OTTER_TPU_HCLUST_DEVICE")
 
 
 def _check_settings() -> None:
@@ -296,6 +297,63 @@ def _dispatch_batch(params: OtterOpts, batch: List[RegionWork],
     return spans, all_pairs, handle, reassign_infos, ef_handle, e2e_base
 
 
+# pooled KDE evaluations (values x grid cells) from which the kernel K8 pays
+# for its launch and copy on the card
+DEVICE_KDE_MIN_EVALS = 2_000_000
+
+
+def _use_device_kde(engine, kde_regions) -> bool:
+    """Route the batch's KDE to K8? OTTER_TPU_MESH_KDE=1 forces it (the
+    plain version on a CPU engine), =0 keeps the host float64 KDE; by
+    default an engine on the card takes it once the pooled evaluation
+    count reaches DEVICE_KDE_MIN_EVALS, as the JAX package routes."""
+    env = os.environ.get("OTTER_TPU_MESH_KDE", "")
+    if env in ("0", "1"):
+        return env == "1"
+    total_vals = sum(len(v) for _si, v, _b in kde_regions)
+    return (getattr(engine, "mode", "") == "cuda"
+            and total_vals * 401 >= DEVICE_KDE_MIN_EVALS)
+
+
+def _device_kde(params: OtterOpts, engine, kde_regions) -> dict:
+    """Span index -> float64 densities from K8, every region certified
+    against the float64 oracle's decisions (ops/kde.py::
+    kde_decision_certified_scaled_batch); an uncertified region is
+    recomputed by the float64 KDE, so clustering is byte-identical to the
+    host path."""
+    from ..ops.kde import (kde_decision_certified_scaled_batch,
+                           kde_densities_batched, kde_grid)
+    from ..parallel.mesh import pooled_kde_scaled
+
+    values = [v for _si, v, _b in kde_regions]
+    bws = [b for _si, _v, b in kde_regions]
+    device = getattr(engine, "device", None) or "cpu"
+    with metrics.phase("device_dispatch"), metrics.phase("kde_device"):
+        scaled = pooled_kde_scaled(values, bws, device)
+    region_dens: dict = {}
+    fallback = []
+    with metrics.phase("cluster_consensus"):
+        radius = max(1, int(params.max_error / 0.0025))
+        with metrics.phase("kde_certify"):
+            certs = kde_decision_certified_scaled_batch(scaled, values, bws,
+                                                        radius)
+        for r, (ok, d64) in enumerate(certs):
+            if ok:
+                region_dens[kde_regions[r][0]] = d64
+            else:
+                fallback.append(r)
+        if fallback:
+            with metrics.phase("kde_f64_fallback"):
+                f64 = kde_densities_batched([values[r] for r in fallback],
+                                            [bws[r] for r in fallback],
+                                            kde_grid(0.0025))
+            for r, d in zip(fallback, f64):
+                region_dens[kde_regions[r][0]] = d
+    metrics.add("kde_device_regions", len(kde_regions) - len(fallback))
+    metrics.add("kde_f64_fallback_regions", len(fallback))
+    return region_dens
+
+
 def _finish_batch(params: OtterOpts, staged, dist_backend,
                   out: TextIO) -> None:
     """Collect a ``_dispatch_batch`` handle and run the host half (KDE,
@@ -332,8 +390,8 @@ def _finish_batch(params: OtterOpts, staged, dist_backend,
                                  / pair_maxlen[start : start + nv])
         matrices[idx] = distmatrix
 
-    # per-region float64 KDE densities, pooled across the batch, for the
-    # regions otter_hclust takes to the KDE
+    # per-region KDE densities, pooled across the batch, for the regions
+    # otter_hclust takes to the KDE
     kde_regions = []
     for si, (work, _c, _s) in enumerate(spans):
         if params.max_alleles == 1 or len(work.valid_indeces) <= 2:
@@ -345,8 +403,10 @@ def _finish_batch(params: OtterOpts, staged, dist_backend,
                 break
         kde_regions.append((si, matrices[si].values, bw))
     region_dens: dict = {}
-    if kde_regions:
-        with metrics.phase("cluster_consensus"):
+    if kde_regions and _use_device_kde(engine, kde_regions):
+        region_dens = _device_kde(params, engine, kde_regions)
+    elif kde_regions:
+        with metrics.phase("cluster_consensus"), metrics.phase("kde_f64"):
             dens_list = kde_densities_batched(
                 [v for _si, v, _b in kde_regions],
                 [b for _si, _v, b in kde_regions], kde_grid(0.0025))

@@ -1,5 +1,6 @@
-"""Seeded synthetic tandem-repeat loci: an indexed BAM of noisy long reads
-and the BED of their regions, written with the package's own BAM writer.
+"""Seeded synthetic inputs, written with the package's own BAM writer and
+BAI indexer: tandem-repeat loci (an indexed BAM of noisy long reads and the
+BED of their regions) and a merged genotyping cohort.
 
 Each locus carries two alleles, the reference's and one expanded by a CAG
 run; every read walks the left flank, an allele and the right flank with
@@ -8,6 +9,9 @@ and a CIGAR that projects the allele back onto the region. Optionally a
 share of the reads ends inside the allele (non-spanning reads) and some
 reads carry N bases in the allele. With neither option the data equal
 ``bench_e2e.build_ont_fixture``'s for the same arguments.
+
+``cohort_fixture`` writes ``bench_e2e.build_cohort_fixture``'s merged
+cohort BAM, BED and reference FASTA, byte for byte.
 """
 
 from __future__ import annotations
@@ -166,3 +170,118 @@ def tandem_repeat_loci(tmp: str, n_regions: int, cov: int, err: float,
     bam = os.path.join(tmp, f"{name}_reads.bam")
     write_bam(bam, ref_len, records)
     return bam, bed
+
+
+def cohort_fixture(tmp: str, n_samples: int = 64, n_regions: int = 32,
+                   seed: int = 5) -> Tuple[str, str, str]:
+    """A merged otter cohort BAM (one allele record per sample haplotype,
+    with its ta/RG/tc/ac/sc/se/ic tags and one @RG line per sample), its BED
+    and the reference FASTA under ``tmp``: the joint-genotyping input of
+    genotype.cpp:173-192. Odd samples are het for a CAG expansion of 10-29
+    units of a 120 bp region, even ones hom-ref; each allele carries 0-2
+    substitutions. Returns (bam, bed, fasta)."""
+    rng = random.Random(seed)
+    span = 2500
+    ref_len = 1000 + n_regions * span + 2000
+    ref = "".join(rng.choice("ACGT") for _ in range(ref_len))
+    bed = os.path.join(tmp, "cohort_regions.bed")
+    records: List[BamRecord] = []
+    with open(bed, "w") as fh:
+        for r in range(n_regions):
+            start = 1000 + r * span
+            end = start + 120
+            fh.write(f"chr1\t{start}\t{end}\n")
+            region = f"chr1:{start}-{end}"
+            base = ref[start:end]
+            exp = base + "CAG" * rng.randrange(10, 30)
+            for s in range(n_samples):
+                for hap, seq in enumerate((base, exp) if s % 2 else
+                                          (base, base)):
+                    sv = list(seq)
+                    for _ in range(rng.randrange(0, 3)):
+                        p = rng.randrange(len(sv))
+                        sv[p] = rng.choice("ACGT")
+                    rec = read_record(f"a{r}_{s}_{hap}", start, "".join(sv),
+                                      [(len(sv), BAM_CMATCH)])
+                    rec.aux = b"".join(bytes(encode_aux(*t)) for t in (
+                        ("ta", "Z", region), ("RG", "Z", f"S{s}"),
+                        ("tc", "i", 20), ("ac", "i", 10), ("sc", "i", 8),
+                        ("se", "f", 0.01), ("ic", "i", 1)))
+                    records.append(rec)
+    bam = os.path.join(tmp, "cohort64.bam")
+    header = "\n".join(
+        ["@HD\tVN:1.6\tSO:coordinate", f"@SQ\tSN:chr1\tLN:{ref_len}",
+         "@PG\tID:otter\tOF:1,0"]
+        + [f"@RG\tID:S{s}" for s in range(n_samples)]) + "\n"
+    with BamWriter(bam, header, [("chr1", ref_len)]) as w:
+        for rec in sorted(records, key=lambda x: (x.ref_id, x.pos)):
+            w.write(rec)
+    index_bam(bam)
+    fa = os.path.join(tmp, "cohort_ref.fa")
+    with open(fa, "w") as fh:
+        fh.write(">chr1\n")
+        for i in range(0, len(ref), 60):
+            fh.write(ref[i : i + 60] + "\n")
+    return bam, bed, fa
+
+
+def _mutated(rng: random.Random, s: str, rate: float) -> str:
+    """``s`` with substitutions, insertions and deletions at total rate
+    ``rate`` (0.4 / 0.3 / 0.3)."""
+    out = []
+    for ch in s:
+        x = rng.random()
+        if x < rate * 0.4:
+            out.append(rng.choice([b for b in "ACGT" if b != ch]))
+        elif x < rate * 0.7:
+            out += [ch, rng.choice("ACGT")]
+        elif x >= rate:
+            out.append(ch)
+    return "".join(out)
+
+
+def compare_fixture(tmp: str, n_regions: int, seed: int, lo: int = 300,
+                    hi: int = 2500) -> Tuple[str, str, str]:
+    """A truth and a query otter BAM (two assembled alleles a region, sample
+    T1 and Q1) and their BED under ``tmp``, the input of ``compare``: each
+    region's truth alleles are a random sequence of ``lo``-``hi`` bp and a
+    copy with 2% error and a CAG run; the query's are copies of those at
+    0.5% error. Every fourth region's second query allele carries an N base,
+    every seventh truth allele is "N" (compare.cpp's special case). Returns
+    (truth_bam, query_bam, bed)."""
+    from ..io.bam import parse_sam_to_bam
+
+    rng = random.Random(seed)
+    ref_len = 2000 + 200 * n_regions
+    sams = {}
+    rows = {"T1": [], "Q1": []}
+    bed = os.path.join(tmp, "compare_regions.bed")
+    with open(bed, "w") as fh:
+        for r in range(n_regions):
+            start = 100 + 200 * r
+            region = f"{start}-{start + 60}"
+            fh.write(f"chr1\t{start}\t{start + 60}\n")
+            base = "".join(rng.choice("ACGT")
+                           for _ in range(rng.randint(lo, hi)))
+            alt = _mutated(rng, base, 0.02) + "CAG" * rng.randint(3, 30)
+            truth = [base, "N" if r % 7 == 6 else alt]
+            query = [_mutated(rng, base, 0.005), _mutated(rng, alt, 0.005)]
+            if r % 4 == 3:
+                q = list(query[1])
+                q[rng.randrange(len(q))] = "N"
+                query[1] = "".join(q)
+            for sample, alleles in (("T1", truth), ("Q1", query)):
+                for i, seq in enumerate(alleles):
+                    rows[sample].append(
+                        f"chr1:{region}_{i}\t0\tchr1\t{start + 1}\t0\t"
+                        f"{len(seq)}M\t*\t0\t0\t{seq}\t{'!' * len(seq)}\t"
+                        f"RG:Z:{sample}\tta:Z:chr1:{region}\ttc:i:10\t"
+                        f"ac:i:5\tsc:i:5\tsp:A:b\tic:i:2\tse:f:0")
+    for sample, name in (("T1", "truth"), ("Q1", "query")):
+        path = os.path.join(tmp, f"compare_{name}.bam")
+        parse_sam_to_bam("\n".join(
+            [f"@SQ\tSN:chr1\tLN:{ref_len}", f"@RG\tID:{sample}",
+             "@PG\tID:otter\tOF:1,0"] + rows[sample]) + "\n", path)
+        index_bam(path)
+        sams[sample] = path
+    return sams["T1"], sams["Q1"], bed

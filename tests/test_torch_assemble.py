@@ -126,19 +126,84 @@ def test_port_cpu_reads_with_n_bases(tmp_path):
 
 
 def test_cli_runs_without_jax(fixtures, tmp_path):
-    """``python -m otter_tpu_torch.cli.main assemble`` in a fresh process
-    writes the host path's bytes and imports neither jax nor any module of
-    the JAX package (exact)."""
+    """``python -m otter_tpu_torch.cli.main`` in a fresh process runs every
+    subcommand (assemble, genotype, wgat, vcf2mat; compare through its
+    model entry on the CPU, the CLI's default being the card), writes the
+    host paths' bytes, and imports neither jax nor any module of the JAX
+    package (exact)."""
+    from otter_tpu.models.compare import compare as reference_compare
+    from otter_tpu.models.genotype import genotype as reference_genotype
+    from otter_tpu.models.vcf2mat import vcf2mat as reference_vcf2mat
+    from otter_tpu.models.wgat import wgat as reference_wgat
+    from otter_tpu_torch.utils.synth import cohort_fixture
+    from test_e2e_wgat_compare import _otter_bam_from_alleles
+
     bam, bed, _fa = fixtures["het"]
+    gbam, gbed, gfa = cohort_fixture(str(tmp_path), n_samples=6,
+                                     n_regions=3, seed=9)
+    asm = str(tmp_path / "asm.bam")
+    contig = make_reference(random.Random(4), length=1500, repeat="AT",
+                            repeat_at=700, repeat_units=20)
+    make_bam(asm, [("chr1", 3000)], [read_record(
+        "ctg", 0, 500, contig, [(len(contig), BAM_CMATCH)])])
+    abed = str(tmp_path / "asm.bed")
+    with open(abed, "w") as fh:
+        fh.write("chr1\t900\t960\nchr1\t1500\t1540\n")
+    truth = _otter_bam_from_alleles(tmp_path, "t.bam", {("100-200", 100): [
+        ("ACGTACGTACGGT", "b"), ("ACGTTTTTAC", "l")]}, "T1")
+    query = _otter_bam_from_alleles(tmp_path, "q.bam", {("100-200", 100): [
+        ("ACGTACGTACGT", "b"), ("ACGTTTTGAC", "b")]}, "Q1")
+    cbed = str(tmp_path / "c.bed")
+    with open(cbed, "w") as fh:
+        fh.write("chr1\t100\t200\n")
+    vcf = str(tmp_path / "want.vcf")
+    runs = {"assemble": ["assemble", bam, "-b", bed, "-R", "S1",
+                         "--device", "cpu"],
+            "genotype": ["genotype", gbam, "-b", gbed, "-r", gfa,
+                         "--device", "cpu"],
+            "wgat": ["wgat", asm, "-b", abed, "-R", "ASM1"],
+            "vcf2mat": ["vcf2mat", vcf, "-b", gbed]}
     code = (
-        "import sys\n"
+        "import io, sys\n"
         "from otter_tpu_torch.cli.main import main\n"
-        f"rc = main(['assemble', {bam!r}, '-b', {bed!r}, '-R', 'S1', "
-        "'--device', 'cpu'])\n"
+        "from otter_tpu_torch.config import OtterOpts\n"
+        "from otter_tpu_torch.models.compare import compare\n"
+        "def run(name, argv):\n"
+        "    buf, sys.stdout = sys.stdout, io.StringIO()\n"
+        "    try:\n"
+        "        assert main(argv) == 0\n"
+        "    finally:\n"
+        "        buf, sys.stdout = sys.stdout, buf\n"
+        "    open(name + '.out', 'w').write(buf.getvalue())\n"
+        f"for name, argv in {runs!r}.items():\n"
+        "    run(name, argv)\n"
+        "p = OtterOpts()\n"
+        "p.device = 'cpu'\n"
+        "with open('compare.out', 'w') as fh:\n"
+        f"    compare(p, {cbed!r}, {truth!r}, {query!r}, out=fh)\n"
         "sys.stderr.write('JAX_LOADED=%s\\n' % ('jax' in sys.modules))\n"
         "sys.stderr.write('REFERENCE_LOADED=%s\\n' % any(\n"
-        "    m.split('.')[0] == 'otter_tpu' for m in sys.modules))\n"
-        "raise SystemExit(rc)\n")
+        "    m.split('.')[0] == 'otter_tpu' for m in sys.modules))\n")
+    want = {"assemble": _run(reference_assemble, fixtures["het"], "host",
+                             "sam")}
+    host = OtterOpts()
+    host.device = "host"
+    out = io.StringIO()
+    reference_genotype(host, gbam, gbed, gfa, out=out)
+    want["genotype"] = out.getvalue()
+    with open(vcf, "w") as fh:
+        fh.write(want["genotype"])
+    out = io.StringIO()
+    reference_vcf2mat(host, gbed, vcf, 3, out=out)
+    want["vcf2mat"] = out.getvalue()
+    wp = OtterOpts()
+    wp.read_group = "ASM1"
+    out = io.StringIO()
+    reference_wgat(wp, asm, abed, out=out)
+    want["wgat"] = out.getvalue()
+    out = io.StringIO()
+    reference_compare(host, cbed, truth, query, out=out)
+    want["compare"] = out.getvalue()
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
@@ -146,16 +211,56 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
     assert res.returncode == 0, res.stderr
     assert "JAX_LOADED=False" in res.stderr
     assert "REFERENCE_LOADED=False" in res.stderr
-    assert res.stdout == _run(reference_assemble, fixtures["het"], "host",
-                              "sam")
+    for name, text in want.items():
+        assert text.count("\n") >= 2, name
+        with open(tmp_path / f"{name}.out") as fh:
+            assert fh.read() == text, name
 
 
 def test_jax_only_settings_raise(fixtures, monkeypatch):
     """A setting that would send the shared host code into a JAX device
     path raises instead of loading JAX."""
-    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "1")
+    monkeypatch.setenv("OTTER_TPU_POA_DEVICE", "1")
     with pytest.raises(RuntimeError):
         _run(assemble, fixtures["het"], "cpu", "sam")
+
+
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_port_cpu_device_kde_byte_identical(fixtures, name, monkeypatch):
+    """OTTER_TPU_MESH_KDE=1 sends the batch's KDE to K8 (its plain version
+    on the CPU) and the certification: the port writes otter_tpu --device
+    host's bytes (exact), and the device KDE served regions."""
+    from otter_tpu_torch.utils import metrics
+
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "1")
+    metrics.reset()
+    got = _run(assemble, fixtures[name], "cpu", "sam")
+    counts = metrics.snapshot()
+    monkeypatch.delenv("OTTER_TPU_MESH_KDE")
+    assert got == _run(reference_assemble, fixtures[name], "host", "sam")
+    assert counts["count.kde_device_regions"] > 0
+    assert "time.kde_device" in counts and "time.kde_certify" in counts
+
+
+def test_device_kde_route_by_size(monkeypatch):
+    """Without the setting, K8 takes a batch on an engine on the card once
+    values x 401 reaches 2,000,000, never on a CPU engine; =0 keeps the
+    float64 KDE."""
+    from otter_tpu_torch.models.assemble import _use_device_kde
+
+    class Card:
+        mode = "cuda"
+
+    big = [(0, [0.0] * 4988, 0.01)]     # 4,988 x 401 = 2,000,188
+    small = [(0, [0.0] * 4987, 0.01)]
+    monkeypatch.delenv("OTTER_TPU_MESH_KDE", raising=False)
+    assert _use_device_kde(Card(), big)
+    assert not _use_device_kde(Card(), small)
+    assert not _use_device_kde(TorchDistBackend("cpu").engine, big)
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "0")
+    assert not _use_device_kde(Card(), big)
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "1")
+    assert _use_device_kde(TorchDistBackend("cpu").engine, small)
 
 
 def test_unknown_device_raises(fixtures):
@@ -183,6 +288,25 @@ def test_synth_loci_equal_bench_fixture(tmp_path):
                              name="smoke")
     for w, g in ((want[0], got[0]), (want[0] + ".bai", got[0] + ".bai"),
                  (want[1], got[1])):
+        with open(w, "rb") as fw, open(g, "rb") as fg:
+            assert fw.read() == fg.read()
+
+
+def test_synth_cohort_equal_bench_fixture(tmp_path):
+    """The port's cohort generator writes bench_e2e.build_cohort_fixture's
+    BAM, BAI, BED and FASTA byte for byte (exact)."""
+    sys.path.insert(0, REPO)
+    import bench_e2e
+    from otter_tpu_torch.utils.synth import cohort_fixture
+
+    a, b = tmp_path / "a", tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    want = bench_e2e.build_cohort_fixture(str(a), n_samples=12, n_regions=3,
+                                          seed=23)
+    got = cohort_fixture(str(b), n_samples=12, n_regions=3, seed=23)
+    for w, g in zip(list(want) + [want[0] + ".bai"],
+                    list(got) + [got[0] + ".bai"]):
         with open(w, "rb") as fw, open(g, "rb") as fg:
             assert fw.read() == fg.read()
 

@@ -348,3 +348,150 @@ def test_affine_tb_cuda_one_member(cuda_device, k):
         a, bpad, mn = K5.pack_affine_jobs([job], 1024, k)
         args = [torch.from_numpy(x).to(cuda_device) for x in (a, bpad, mn)]
         _affine_both(args, k, K5._t_words(1024, k))
+
+
+# (regions, nvals) of chip_smoke.py's K8 sets (hifi-tr-1.5k's batch, the
+# refscale region, the largest batch) and regions of 1 and 9 values
+K8_SHAPES = [(32, 4950), (1, 19900), (256, 19900), (4, 1), (4, 9)]
+
+
+@pytest.mark.parametrize("shape", K8_SHAPES)
+def test_kde_scaled_cuda_matches_plain(cuda_device, shape):
+    """K8 on the card against its plain version on the card: m equal (the
+    same IEEE f32 ops), s to a relative 1e-6 (expf against torch.exp, the
+    same halving order)."""
+    from otter_tpu_torch.kernels import kde_scaled as K8
+    from otter_tpu_torch.ops.kde import kde_grid
+
+    R, n = shape
+    rng = np.random.default_rng(R * 100003 + n)
+    n_pad = max(8, 1 << (n - 1).bit_length())
+    V = np.zeros((R, n_pad), dtype=np.float32)
+    V[:, :n] = np.clip(rng.normal(0.05, 0.05, (R, n)), 0, 1)
+    nv = np.full(R, n, dtype=np.int32)
+    nv[-1] = max(1, n // 2)                 # a ragged row
+    bw = np.where(np.arange(R) % 2, 0.015, 0.01).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (V, nv, bw, kde_grid(0.0025).astype(np.float32))]
+    before = K8.kde_scaled_cuda.launches
+    m, s = K8.kde_scaled(*args, n_max=n)
+    assert K8.kde_scaled_cuda.launches == before + 1
+    m_p, s_p = K8.kde_scaled_torch(*args)
+    assert torch.equal(m, m_p)
+    torch.testing.assert_close(s, s_p, rtol=1e-6, atol=0)
+
+
+def test_kde_scaled_cuda_refused_launch_raises(cuda_device):
+    """A launch the kernel's entry refuses (n_max past n_pad) raises; no
+    result comes back from another path."""
+    from otter_tpu_torch.kernels import kde_scaled as K8
+
+    args = [torch.zeros((2, 8), device=cuda_device),
+            torch.ones(2, dtype=torch.int32, device=cuda_device),
+            torch.full((2,), 0.01, device=cuda_device),
+            torch.zeros(401, device=cuda_device)]
+    with pytest.raises(RuntimeError):
+        K8.kde_scaled_cuda(*args, n_max=9)
+
+
+def _tandem_loci(tmp_path):
+    from otter_tpu_torch.utils.synth import tandem_repeat_loci
+
+    return tandem_repeat_loci(str(tmp_path), n_regions=2, cov=40, err=0.002,
+                              expansion=30, region_len=300, seed=5,
+                              name="k8")
+
+
+def _port_assemble(bam, bed, device):
+    from otter_tpu_torch.config import OtterOpts as PortOpts
+
+    p = PortOpts()
+    p.read_group = "S1"
+    p.device = device
+    out = io.StringIO()
+    assemble(bam, bed, "", False, p, out=out)
+    return out.getvalue()
+
+
+def test_assemble_device_kde_cuda_byte_identical(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """With OTTER_TPU_MESH_KDE=1 the port's assemble on the card runs K8 and
+    writes the bytes of its CPU run with the float64 KDE (exact)."""
+    from otter_tpu_torch.kernels import kde_scaled as K8
+
+    bam, bed = _tandem_loci(tmp_path)
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "0")
+    want = _port_assemble(bam, bed, "cpu")
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "1")
+    before = K8.kde_scaled_cuda.launches
+    assert _port_assemble(bam, bed, "cuda") == want
+    assert K8.kde_scaled_cuda.launches > before
+
+
+def test_assemble_k8_failure_raises(cuda_device, tmp_path, monkeypatch):
+    """A K8 failure on the card raises out of assemble instead of falling
+    back to the float64 KDE."""
+    from otter_tpu_torch.kernels import kde_scaled as K8
+
+    def broken(*_a, **_k):
+        raise RuntimeError("K8 failed")
+
+    bam, bed = _tandem_loci(tmp_path)
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "1")
+    monkeypatch.setattr(K8, "kde_scaled_cuda", broken)
+    with pytest.raises(RuntimeError, match="K8 failed"):
+        _port_assemble(bam, bed, "cuda")
+
+
+def _port_genotype(bam, bed, fa, device):
+    from otter_tpu_torch.config import OtterOpts as PortOpts
+    from otter_tpu_torch.models.genotype import genotype
+
+    p = PortOpts()
+    p.device = device
+    out = io.StringIO()
+    genotype(p, bam, bed, fa, out=out)
+    return out.getvalue()
+
+
+def test_genotype_cuda_gemm_byte_identical(cuda_device, tmp_path):
+    """genotype's pooled cosine GEMM on the card (f32 torch.bmm, TF32 off)
+    writes the VCF of the port's host f64 BLAS route (exact), on a
+    64-sample cohort."""
+    from otter_tpu_torch.utils.synth import cohort_fixture
+
+    cohort = cohort_fixture(str(tmp_path), n_samples=64, n_regions=6)
+    got = _port_genotype(*cohort, "cuda")
+    assert got == _port_genotype(*cohort, "cpu")
+    assert len([l for l in got.splitlines() if not l.startswith("#")]) == 6
+
+
+def test_genotype_gemm_failure_raises(cuda_device, tmp_path, monkeypatch):
+    """A failure of the GEMM on the card raises out of genotype instead of
+    giving way to the host BLAS."""
+    from otter_tpu_torch.utils.synth import cohort_fixture
+
+    def broken(*_a, **_k):
+        raise RuntimeError("bmm failed")
+
+    cohort = cohort_fixture(str(tmp_path), n_samples=8, n_regions=3)
+    monkeypatch.setattr(torch, "bmm", broken)
+    with pytest.raises(RuntimeError, match="bmm failed"):
+        _port_genotype(*cohort, "cuda")
+
+
+def test_compare_engine_failure_raises(cuda_device, tmp_path, monkeypatch):
+    """A failure of the distance engine raises out of compare instead of
+    giving way to the scalar host DP."""
+    from otter_tpu_torch.config import OtterOpts as PortOpts
+    from otter_tpu_torch.models.compare import compare
+    from otter_tpu_torch.utils.synth import compare_fixture
+
+    def broken(*_a, **_k):
+        raise RuntimeError("engine failed")
+
+    truth, query, bed = compare_fixture(str(tmp_path), 4, seed=3)
+    monkeypatch.setattr(EditDistanceEngine, "distances", broken)
+    p = PortOpts()
+    with pytest.raises(RuntimeError, match="engine failed"):
+        compare(p, bed, truth, query, out=io.StringIO())
