@@ -47,13 +47,24 @@ exits non-zero:
    then K2 is timed at the shape of its launch in hifi-tr-1.5k (that run's
    ``jobs_k2`` count of jobs);
 6. the other entry points: ``genotype`` on bench_e2e's 64-sample x 32-region
-   and 500-sample x 8-region cohorts, the card's GEMM route and the host
-   BLAS route (``OTTER_TPU_GENOTYPE_DEVICE=0``) in turns with their
-   regions/s, each VCF byte-identical to the port's sequential host path;
-   ``compare`` on a seeded truth / query pair on the card's engine,
-   byte-identical to the scalar path; ``vcf2mat`` on the 64-sample VCF and
-   ``wgat`` on a seeded aligned assembly, checked against what their inputs
-   hold.
+   and 500-sample x 8-region cohorts, the card's GEMM route
+   (``OTTER_TPU_GENOTYPE_DEVICE=1``) and the host BLAS route (the default)
+   in turns with their regions/s, each VCF byte-identical to the port's
+   sequential host path; ``compare`` on a seeded truth / query pair on the
+   card's engine, byte-identical to the scalar path; ``vcf2mat`` on the
+   64-sample VCF and ``wgat`` on a seeded aligned assembly, checked against
+   what their inputs hold;
+7. ``-t`` and several processes: hifi-tr-1.5k at ``-t 1`` and ``-t 8`` in
+   turns (walls, ``host_io``), each byte-identical to phase 5's card
+   output, and ``OTTER_TPU_FINISH_POOL=1 -t 8`` raising on the card (its
+   workers would run on the host); then the port's command line in
+   separate processes sharing the card (``--dist-worker``): hifi-tr-1.5k in
+   one process, in two over gloo
+   with per-process streams and with ``OTTER_TPU_GATHER=1``, and in one
+   again, each output byte-identical to phase 5's, each process's kernel
+   launches read from its own counters (K1, K2, K5 and K8 must launch in
+   every process), walls from start to exit; genotype64 in two processes
+   with the gather, its VCF byte-identical to phase 6's.
 
 The line before the last is a JSON object with each kernel's launches in
 phase 5, its largest disagreement with its plain version, its times and its
@@ -1366,7 +1377,7 @@ def host_oracle_result(oracle: subprocess.Popen, tmp: str, i: int):
 def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool,
              want: str, host_wall: float):
     """The port on the card against the host engine's output ``want``:
-    byte-identical. Returns the card run's counters."""
+    byte-identical. Returns the card run's (counters, output, wall)."""
     import torch
 
     from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
@@ -1395,7 +1406,7 @@ def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool,
             f"Gcells/s (Myers DP cells) end to end; host engine wall "
             f"{host_wall:.3f} s (in the side process, beside phase 3)")
         log(f"{name}: phase seconds {json.dumps(phases, sort_keys=True)}")
-    return c
+    return c, got, wall
 
 
 KDE_PHASES = ("kde_device", "kde_certify", "kde_f64_fallback", "kde_f64")
@@ -1436,18 +1447,20 @@ def kde_on_off(name: str, bam: str, bed: str) -> None:
           "on and off")
 
 
-def phase_full(tmp: str, fixtures: list, oracle) -> dict:
+def phase_full(tmp: str, fixtures: list, oracle):
+    """Returns each kernel's launches, and hifi-tr-1.5k's (counters, card
+    output, wall)."""
     log("== phase 5: full-size main path")
     wrappers = cuda_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     launches = dict.fromkeys(wrappers, 0)
-    counters = {}
+    runs = {}
     for i, ((name, kw, rates), (bam, bed)) in enumerate(zip(CELLS,
                                                            fixtures)):
         want, host_wall = host_oracle_result(oracle, tmp, i)
-        counters[name] = run_cell(name, bam, bed, kw["n_regions"], rates,
-                                  want, host_wall)
+        runs[name] = run_cell(name, bam, bed, kw["n_regions"], rates, want,
+                              host_wall)
         cell = {}
         for k, fn in wrappers.items():  # the host run launches nothing
             cell[k] = fn.launches - launches[k]
@@ -1460,7 +1473,7 @@ def phase_full(tmp: str, fixtures: list, oracle) -> dict:
     check(not missing, f"kernels never launched on the main path: {missing}")
     kde_on_off("cell hifi-tr-1.5k", *fixtures[0])
     kde_on_off("refscale region", *fixtures[3])
-    return launches, counters["cell hifi-tr-1.5k"]
+    return launches, runs["cell hifi-tr-1.5k"]
 
 
 # ---------------------------------------------------------------------------
@@ -1488,27 +1501,29 @@ def genotype_text(bam, bed, fa, device="cuda", batched=True):
 
 def genotype_cohort(tmp: str, name: str, n_samples: int, n_regions: int,
                     seed: int):
-    """One cohort of bench_e2e's genotype cells: the card's GEMM route and
-    the host-BLAS route (OTTER_TPU_GENOTYPE_DEVICE=0) in turns (card, host,
-    host, card) after a warm-up, each VCF byte-identical to the port's
-    sequential host path; regions/s of both. Returns the VCF's and the
-    BED's paths."""
+    """One cohort of bench_e2e's genotype cells: the card's GEMM route
+    (OTTER_TPU_GENOTYPE_DEVICE=1) and the host-BLAS route (the default) in
+    turns (card, host, host, card) after a warm-up of each, each VCF
+    byte-identical to the port's sequential host path; regions/s of both.
+    Returns the cohort's BAM, BED and FASTA paths, the VCF's path and the
+    VCF."""
     from otter_tpu_torch.utils.synth import cohort_fixture
 
     d = os.path.join(tmp, name)
     os.makedirs(d)
     bam, bed, fa = cohort_fixture(d, n_samples, n_regions, seed)
     t_seq, want, _snap = genotype_text(bam, bed, fa, "cpu", batched=False)
-    genotype_text(bam, bed, fa)  # warm-up: cuBLAS and the native library
     walls = {"card": [], "host BLAS": []}
     gemm = {}
-    for route in ("card", "host BLAS", "host BLAS", "card"):
-        if route == "host BLAS":
-            os.environ["OTTER_TPU_GENOTYPE_DEVICE"] = "0"
+    for route in ("warm-up", "card", "host BLAS", "host BLAS", "card"):
+        if route in ("warm-up", "card"):  # warm-up: cuBLAS
+            os.environ["OTTER_TPU_GENOTYPE_DEVICE"] = "1"
         try:
             wall, text, snap = genotype_text(bam, bed, fa)
         finally:
             os.environ.pop("OTTER_TPU_GENOTYPE_DEVICE", None)
+        if route == "warm-up":
+            continue
         check(text == want, f"{name}: the {route} route's VCF differs from "
               "the sequential host path")
         walls[route].append(wall)
@@ -1529,7 +1544,7 @@ def genotype_cohort(tmp: str, name: str, n_samples: int, n_regions: int,
     vcf = os.path.join(d, f"{name}.vcf")
     with open(vcf, "w") as fh:
         fh.write(want)
-    return vcf, bed
+    return dict(bam=bam, bed=bed, fa=fa, vcf=vcf, text=want)
 
 
 def compare_entry(tmp: str) -> None:
@@ -1652,13 +1667,188 @@ def wgat_entry(tmp: str) -> None:
         f"{len(dele)} bp; {wall:.3f} s")
 
 
-def phase_entry_points(tmp: str) -> None:
+def phase_entry_points(tmp: str) -> dict:
+    """Returns genotype64's cohort and VCF (genotype_cohort)."""
     log("== phase 6: the other entry points")
-    vcf, bed = genotype_cohort(tmp, "genotype64", 64, 32, 5)
+    g64 = genotype_cohort(tmp, "genotype64", 64, 32, 5)
     genotype_cohort(tmp, "genotype500", 500, 8, 23)
     compare_entry(tmp)
-    vcf2mat_entry(vcf, bed)
+    vcf2mat_entry(g64["vcf"], g64["bed"])
     wgat_entry(tmp)
+    return g64
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: -t and several processes sharing the card
+# ---------------------------------------------------------------------------
+
+# the kernels each process of hifi-tr-1.5k must launch: K1, K2, K5, K8
+CELL_KERNELS = ("myers_pool", "myers_striped", "affine_tb", "kde_scaled")
+
+
+def host_pools(bam: str, bed: str, want: str) -> None:
+    """hifi-tr-1.5k on the card at -t 1 and -t 8 in turns (1, 8, 8, 1):
+    walls and ``host_io`` (region prep stays on one thread whatever -t is),
+    every output ``want``, phase 5's card output, byte for byte; then
+    OTTER_TPU_FINISH_POOL=1 -t 8 must raise, since its workers would take
+    each region's host half off the card."""
+    import torch
+
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.utils import metrics
+
+    def once(threads: int, label: str) -> None:
+        metrics.reset()
+        t0 = time.perf_counter()
+        text = run(bam, bed, TorchDistBackend("cuda"), threads=threads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        check(text == want, f"hifi-tr-1.5k {label}: output differs from "
+              "phase 5's")
+        phases = {k: round(snap.get(f"time.{k}", 0.0), 4) for k in (
+            "host_io", "device_dispatch", "cluster_consensus",
+            "consensus_batch")}
+        log(f"hifi-tr-1.5k {label}: wall {wall:.3f} s, identical to phase "
+            f"5: True; phase seconds {json.dumps(phases)}")
+
+    for threads in (1, 8, 8, 1):
+        once(threads, f"-t {threads}")
+    os.environ["OTTER_TPU_FINISH_POOL"] = "1"
+    try:
+        run(bam, bed, TorchDistBackend("cuda"), threads=8)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        os.environ.pop("OTTER_TPU_FINISH_POOL", None)
+    check("OTTER_TPU_FINISH_POOL" in raised, "OTTER_TPU_FINISH_POOL=1 -t 8 "
+          "on the card did not raise")
+    log(f"hifi-tr-1.5k finish pool -t 8 on the card raises: {raised}")
+
+
+def dist_worker_main(argv: list) -> int:
+    """``--dist-worker OUT INFO ARGS...``: the port's command line with
+    ARGS in this process, its standard output into OUT; each kernel's
+    launches in this process (counted from 0 just before the call) and the
+    call's wall into INFO as JSON."""
+    import contextlib
+
+    import torch
+
+    from otter_tpu_torch.cli.main import main as cli
+
+    out_path, info_path, args = argv[0], argv[1], argv[2:]
+    wrappers = cuda_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with open(out_path, "w") as fh, contextlib.redirect_stdout(fh):
+        rc = cli(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(info_path, "w") as fh:
+        json.dump({"launches": {k: fn.launches for k, fn in wrappers.items()},
+                   "wall": wall}, fh)
+    return rc
+
+
+def run_processes(tmp: str, tag: str, args: list, n: int, env: dict):
+    """``n`` processes of the port's command line (``--dist-worker``) on
+    the card, with a coordinator when n > 1; each must exit 0 within 300 s
+    (all are stopped otherwise). Returns (outputs, infos, wall from the
+    first start to the last exit)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    paths = [[os.path.join(tmp, f"{tag}_{pid}.{x}") for x in
+              ("out", "json", "log")] for pid in range(n)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for pid, (out, info, log_path) in enumerate(paths):
+            penv = dict(os.environ, **env)
+            if n > 1:
+                penv.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                            JAX_NUM_PROCESSES=str(n),
+                            JAX_PROCESS_ID=str(pid))
+            with open(log_path, "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--dist-worker", out, info, *args],
+                    env=penv, stdout=fh, stderr=subprocess.STDOUT, cwd=REPO))
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, rc in enumerate(rcs):
+        if rc != 0:
+            with open(paths[pid][2]) as fh:
+                raise RuntimeError(f"{tag}: process {pid} exited {rc}:\n"
+                                   f"{fh.read()[-4000:]}")
+    outs, infos = [], []
+    for out, info, _log in paths:
+        with open(out) as fh:
+            outs.append(fh.read())
+        with open(info) as fh:
+            infos.append(json.load(fh))
+    return outs, infos, wall
+
+
+def processes_on_card(tmp: str, bam: str, bed: str, want: str,
+                      g64: dict) -> None:
+    """hifi-tr-1.5k through the port's command line in separate processes
+    sharing the card, in turns: one process, two with per-process streams,
+    two with OTTER_TPU_GATHER=1, one again; each output is ``want`` (the
+    streams concatenated in process order, or process 0's), every process
+    launched K1, K2, K5 and K8 by its own counters. Then genotype64 in two
+    processes with the gather: the VCF of phase 6."""
+    args = ["assemble", bam, "-b", bed, "-R", "S1"]
+    runs = (("1 process", 1, {}), ("2 processes, streams", 2, {}),
+            ("2 processes, gather", 2, {"OTTER_TPU_GATHER": "1"}),
+            ("1 process", 1, {}))
+    for r, (label, n, env) in enumerate(runs):
+        outs, infos, wall = run_processes(tmp, f"hifi{r}", args, n, env)
+        if env:
+            ok = outs[0] == want and all(o == "" for o in outs[1:])
+        else:
+            ok = "".join(outs) == want
+        check(ok, f"hifi-tr-1.5k, {label}: output differs from phase 5's")
+        for pid, info in enumerate(infos):
+            launched = {k: v for k, v in info["launches"].items() if v}
+            log(f"hifi-tr-1.5k, {label}, process {pid}: launches "
+                f"{json.dumps(launched)}, command wall {info['wall']:.3f} s")
+            missing = [k for k in CELL_KERNELS if not launched.get(k)]
+            check(not missing, f"hifi-tr-1.5k, {label}, process {pid}: "
+                  f"{missing} not launched")
+        log(f"hifi-tr-1.5k, {label}: wall {wall:.3f} s from start to exit "
+            f"(interpreter start included), longest command wall "
+            f"{max(i['wall'] for i in infos):.3f} s; identical to phase 5: "
+            "True")
+    # -e: phase 6 ran genotype with OtterOpts' max_error, not the CLI's
+    outs, infos, wall = run_processes(
+        tmp, "genotype64", ["genotype", g64["bam"], "-b", g64["bed"], "-r",
+                            g64["fa"], "-e", "0.01"], 2,
+        {"OTTER_TPU_GATHER": "1"})
+    check(outs == [g64["text"], ""], "genotype64 in 2 processes: the "
+          "gathered VCF differs from phase 6's")
+    log(f"genotype64, 2 processes, gather: VCF identical to phase 6: True; "
+        f"wall {wall:.3f} s, command walls "
+        f"{', '.join(f'{i['wall']:.3f}' for i in infos)} s")
+
+
+def phase_pools_processes(tmp: str, fixture, hifi_text: str,
+                          g64: dict) -> None:
+    log("== phase 7: -t and processes sharing the card")
+    t0 = time.perf_counter()
+    host_pools(*fixture, hifi_text)
+    processes_on_card(tmp, *fixture, hifi_text, g64)
+    log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
 
 def phase_profile(tmp: str) -> None:
@@ -1712,6 +1902,8 @@ def phase_profile(tmp: str) -> None:
 def main() -> int:
     if sys.argv[1:2] == ["--host-oracle"]:
         return host_oracle_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return dist_worker_main(sys.argv[2:])
     import torch
 
     t_start = time.perf_counter()
@@ -1735,12 +1927,15 @@ def main() -> int:
             done("phase 3")
             phase_small(tmp)
             done("phase 4")
-            launches, cell = phase_full(tmp, fixtures, oracle)
+            launches, (cell, hifi_text, _wall) = phase_full(tmp, fixtures,
+                                                            oracle)
             done("phase 5")
             k2_small_launch(dev, cell["jobs_k2"])
             done("K2 at the cell's launch shape")
-            phase_entry_points(tmp)
+            g64 = phase_entry_points(tmp)
             done("phase 6")
+            phase_pools_processes(tmp, fixtures[0], hifi_text, g64)
+            done("phase 7")
         finally:
             if oracle.poll() is None:
                 oracle.kill()

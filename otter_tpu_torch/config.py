@@ -9,10 +9,39 @@ flank 21..<10000 (:150), [0,1] range checks (:21-24).
 
 from __future__ import annotations
 
+import os
 import sys
 from dataclasses import dataclass, field
 
 from .utils.timestamp import antimestamp
+
+# settings that select a device path of the JAX package (device POA, device
+# hclust, device k-mer counts) which the port does not have
+UNPORTED_SETTINGS = ("OTTER_TPU_POA_DEVICE", "OTTER_TPU_HCLUST_DEVICE",
+                     "OTTER_TPU_KMER_DEVICE")
+
+# settings with which the JAX package reroutes its consensus around its
+# accelerator's round trips (the host ladder instead of the traceback
+# kernel; band seeds on or off); the port's consensus always takes K5 with
+# seeded bands, so no work leaves the device the engine runs on
+FIXED_ROUTE_SETTINGS = (("OTTER_TPU_AFFINE_DEVICE", "0"),
+                        ("OTTER_TPU_AFFINE_HINTS", "0"),
+                        ("OTTER_TPU_AFFINE_HINTS", "1"))
+
+
+def check_settings() -> None:
+    """Raise for a setting that asks for a path the port does not have, so
+    that no setting of the JAX package is silently ignored. Every entry
+    point that reads a setting (assemble, genotype, compare) calls this."""
+    for name in UNPORTED_SETTINGS:
+        if os.environ.get(name) == "1":
+            raise RuntimeError(f"{name}=1 selects a device path the PyTorch "
+                               "port does not have")
+    for name, value in FIXED_ROUTE_SETTINGS:
+        if os.environ.get(name) == value:
+            raise RuntimeError(f"{name}={value} reroutes the consensus; the "
+                               "PyTorch port always takes the affine "
+                               "traceback kernel (K5) with seeded bands")
 
 
 class OtterConfigError(SystemExit):

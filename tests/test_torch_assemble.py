@@ -130,7 +130,15 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
     subcommand (assemble, genotype, wgat, vcf2mat; compare through its
     model entry on the CPU, the CLI's default being the card), writes the
     host paths' bytes, and imports neither jax nor any module of the JAX
-    package (exact)."""
+    package (exact). The process runs under a coordinator (a one-process
+    gloo group for each subcommand, parallel/distributed.py), and its
+    second assemble with -t 2 and the finish pool on, so the distributed
+    worker and the pools load neither either."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
     from otter_tpu.models.compare import compare as reference_compare
     from otter_tpu.models.genotype import genotype as reference_genotype
     from otter_tpu.models.vcf2mat import vcf2mat as reference_vcf2mat
@@ -159,14 +167,17 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
     vcf = str(tmp_path / "want.vcf")
     runs = {"assemble": ["assemble", bam, "-b", bed, "-R", "S1",
                          "--device", "cpu"],
+            "assemble_pools": ["assemble", bam, "-b", bed, "-R", "S1",
+                               "--device", "cpu", "-t", "2"],
             "genotype": ["genotype", gbam, "-b", gbed, "-r", gfa,
                          "--device", "cpu"],
             "wgat": ["wgat", asm, "-b", abed, "-R", "ASM1"],
             "vcf2mat": ["vcf2mat", vcf, "-b", gbed]}
     code = (
-        "import io, sys\n"
+        "import io, os, sys\n"
         "from otter_tpu_torch.cli.main import main\n"
         "from otter_tpu_torch.config import OtterOpts\n"
+        "from otter_tpu_torch.models import _finish_worker\n"
         "from otter_tpu_torch.models.compare import compare\n"
         "def run(name, argv):\n"
         "    buf, sys.stdout = sys.stdout, io.StringIO()\n"
@@ -176,6 +187,8 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
         "        buf, sys.stdout = sys.stdout, buf\n"
         "    open(name + '.out', 'w').write(buf.getvalue())\n"
         f"for name, argv in {runs!r}.items():\n"
+        "    os.environ['OTTER_TPU_FINISH_POOL'] = \\\n"
+        "        '1' if name == 'assemble_pools' else '0'\n"
         "    run(name, argv)\n"
         "p = OtterOpts()\n"
         "p.device = 'cpu'\n"
@@ -186,6 +199,7 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
         "    m.split('.')[0] == 'otter_tpu' for m in sys.modules))\n")
     want = {"assemble": _run(reference_assemble, fixtures["het"], "host",
                              "sam")}
+    want["assemble_pools"] = want["assemble"]
     host = OtterOpts()
     host.device = "host"
     out = io.StringIO()
@@ -204,11 +218,14 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
     out = io.StringIO()
     reference_compare(host, cbed, truth, query, out=out)
     want["compare"] = out.getvalue()
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO,
+               JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+               JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
+    assert "running single-process" not in res.stderr
     assert "JAX_LOADED=False" in res.stderr
     assert "REFERENCE_LOADED=False" in res.stderr
     for name, text in want.items():

@@ -350,6 +350,32 @@ def test_affine_tb_cuda_one_member(cuda_device, k):
         _affine_both(args, k, K5._t_words(1024, k))
 
 
+@pytest.mark.parametrize("k", [63, 127, 255, 511])
+def test_affine_tb_cuda_warps_match_one_warp_launches(cuda_device, k):
+    """K5 runs 4 members a block, a warp each, and each warp stages its
+    member's codes in its own slice of shared memory; K6 runs a member a
+    block. 64 members of 900-1000 bp (long walks, so the stages reload
+    often, with different codes in each warp) in one launch write, bit for
+    bit, what one-member launches of the same members write, where the
+    block's other warps are idle: a warp reading or writing another's slice
+    breaks it (exact)."""
+    rng = random.Random(1300 + k)
+    jobs = []
+    for _ in range(64):
+        rep = _acgt(rng, rng.randint(900, 1000))
+        jobs.append((_mutate(rng, rep, 0.03), rep, 0, 0, 0, 0))
+    a, bpad, mn = K5.pack_affine_jobs(jobs, 1024, k)
+    tw = K5._t_words(1024, k)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (a, bpad, mn)]
+    for run in (K5.affine_tb_cuda, K5.affine_tb_ckpt_cuda):
+        ops, end = run(*args, k, tw)
+        assert int(end[:, 3].sum()) == len(jobs), run.__name__  # all walked
+        for i in range(len(jobs)):
+            ops1, end1 = run(*(x[i : i + 1] for x in args), k, tw)
+            assert torch.equal(ops[i : i + 1], ops1), (run.__name__, i)
+            assert torch.equal(end[i : i + 1], end1), (run.__name__, i)
+
+
 # (regions, nvals) of chip_smoke.py's K8 sets (hifi-tr-1.5k's batch, the
 # refscale region, the largest batch) and regions of 1 and 9 values
 K8_SHAPES = [(32, 4950), (1, 19900), (256, 19900), (4, 1), (4, 9)]
@@ -454,27 +480,43 @@ def _port_genotype(bam, bed, fa, device):
     return out.getvalue()
 
 
-def test_genotype_cuda_gemm_byte_identical(cuda_device, tmp_path):
-    """genotype's pooled cosine GEMM on the card (f32 torch.bmm, TF32 off)
-    writes the VCF of the port's host f64 BLAS route (exact), on a
-    64-sample cohort."""
+def test_genotype_cuda_gemm_byte_identical(cuda_device, tmp_path,
+                                           monkeypatch):
+    """genotype on the card: by default the host f64 BLAS takes the pooled
+    cosine GEMM (torch.bmm is never called); with
+    OTTER_TPU_GENOTYPE_DEVICE=1 the card does (f32 torch.bmm, TF32 off).
+    Both write the VCF of the port's CPU run (exact), on a 64-sample
+    cohort."""
     from otter_tpu_torch.utils.synth import cohort_fixture
 
     cohort = cohort_fixture(str(tmp_path), n_samples=64, n_regions=6)
+    want = _port_genotype(*cohort, "cpu")
+    calls = []
+    real_bmm = torch.bmm
+
+    def spy(x, y):
+        calls.append(x.device.type)
+        return real_bmm(x, y)
+
+    monkeypatch.setattr(torch, "bmm", spy)
+    assert _port_genotype(*cohort, "cuda") == want
+    assert calls == []
+    monkeypatch.setenv("OTTER_TPU_GENOTYPE_DEVICE", "1")
     got = _port_genotype(*cohort, "cuda")
-    assert got == _port_genotype(*cohort, "cpu")
+    assert got == want and calls == ["cuda"]
     assert len([l for l in got.splitlines() if not l.startswith("#")]) == 6
 
 
 def test_genotype_gemm_failure_raises(cuda_device, tmp_path, monkeypatch):
-    """A failure of the GEMM on the card raises out of genotype instead of
-    giving way to the host BLAS."""
+    """A failure of the GEMM on the card (OTTER_TPU_GENOTYPE_DEVICE=1)
+    raises out of genotype instead of giving way to the host BLAS."""
     from otter_tpu_torch.utils.synth import cohort_fixture
 
     def broken(*_a, **_k):
         raise RuntimeError("bmm failed")
 
     cohort = cohort_fixture(str(tmp_path), n_samples=8, n_regions=3)
+    monkeypatch.setenv("OTTER_TPU_GENOTYPE_DEVICE", "1")
     monkeypatch.setattr(torch, "bmm", broken)
     with pytest.raises(RuntimeError, match="bmm failed"):
         _port_genotype(*cohort, "cuda")

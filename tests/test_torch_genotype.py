@@ -193,6 +193,27 @@ def test_gemm_full_f32_under_global_tf32(monkeypatch):
     assert np.all(S[1, 3:, :] == 0.0)
 
 
+def test_gemm_route_defaults_to_host_blas(monkeypatch):
+    """The pooled cosine GEMM takes the host f64 BLAS unless
+    OTTER_TPU_GENOTYPE_DEVICE=1, whatever the device (the JAX package's
+    choice off a TPU; the card's f32 route ties or loses on an H100)."""
+    monkeypatch.delenv("OTTER_TPU_GENOTYPE_DEVICE", raising=False)
+    assert not port_genotype._use_device_gemm()
+    monkeypatch.setenv("OTTER_TPU_GENOTYPE_DEVICE", "0")
+    assert not port_genotype._use_device_gemm()
+    monkeypatch.setenv("OTTER_TPU_GENOTYPE_DEVICE", "1")
+    assert port_genotype._use_device_gemm()
+
+
+def test_genotype_cuda_without_card_raises(cohort):
+    """--device cuda raises without a card, though the default GEMM route
+    never touches it."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _port(*cohort, device="cuda")
+
+
 def test_genotype_unknown_device_raises(cohort):
     with pytest.raises(ValueError):
         _port(*cohort, device="host")
