@@ -8,7 +8,9 @@ exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit
    (fails without a CUDA device);
-2. build: compiles the kernels (``otter_tpu_torch/csrc/*.cu``) with nvcc;
+2. build: compiles the kernels (``otter_tpu_torch/csrc/*.cu``) with nvcc,
+   prints each kernel's registers and spills and its SASS longest loop
+   (for K8, each step loop's SASS per (cell, value));
 3. kernels: each kernel of the assemble path (K1 Myers pool, K2 striped
    Myers, K3 / K4 banded Myers, K7 banded edit DP, K5 / K6 affine
    traceback with all bits / with checkpoints, K8 scaled KDE)
@@ -26,7 +28,10 @@ exits non-zero:
    (G, q) theirs can, exact; K8 on three sets (hifi-tr-1.5k's batch of 32
    regions x 4,950 values, the refscale region's 1 x 19,900, the largest
    batch 256 x 19,900): m equal, s within a relative 1e-6 and the same
-   certified decisions as its plain version;
+   certified decisions as its plain version, each set with the launch the
+   kernel's rule picks (W warps a cell group, cells a thread, blocks) and
+   the count of cells whose s is not bit-equal to the plain version's
+   (expf against torch.exp);
 4. small main path: the port's ``assemble`` on the card writes the same SAM
    and FASTA bytes as on an exact host engine (native C++ distances, host
    ends-free DP, native affine ladder);
@@ -341,7 +346,7 @@ def sass_loops(lib: str) -> None:
                 ins.append((at, m.group(2)))
         last_exit = max((at for at, text in ins if "EXIT" in text),
                         default=0)
-        longest = 0
+        loops = []  # (instructions, first, last) of each backward branch
         for at, text in ins:
             br = re.search(r"\bBRA(?:\.\w+)*\s+(?:`\(\.?(L_x_\d+)\)|"
                            r"(0x[0-9a-f]+))", text)
@@ -349,11 +354,29 @@ def sass_loops(lib: str) -> None:
                 to = labels.get(br.group(1)) if br.group(1) \
                     else int(br.group(2), 16)
                 if to is not None and to <= at:
-                    longest = max(longest, (at - to) // 16 + 1)
+                    loops.append(((at - to) // 16 + 1, to, at))
+        longest = max(loops, default=(0, 0, 0))[0]
         lanes = re.search(r"(?:affine_tb|edit_banded_warp)_kernelILi(\d+)E",
                           fn_name)
         per_cell = (f" ({longest / int(lanes.group(1)):.1f} per cell over "
                     f"L = {lanes.group(1)} lanes)" if lanes else "")
+        cells = re.search(r"kde_scaled_kernelILi(\d+)E", fn_name)
+        if cells:
+            # K8's step loops (with the reciprocal division or __fdiv_rn,
+            # staged or not) each hold the four step variants: 4 + 3 + 2 +
+            # 1 values of C cells (the first template argument), one exp
+            # (MUFU.EX2) a term
+            terms = 10 * int(cells.group(1))
+            steps = []
+            for size, first, last in loops:
+                body = [t for at, t in ins if first <= at <= last]
+                if sum("MUFU.EX2" in t for t in body) == terms:
+                    steps.append(
+                        f"{size} ({size / terms:.1f} per (cell, value); "
+                        f"MUFU.RCP {sum('MUFU.RCP' in t for t in body)}, "
+                        f"FCHK {sum('FCHK' in t for t in body)})")
+            per_cell = (f"; step loops of {terms} terms each: "
+                        + ", ".join(steps))
         log(f"  SASS {fn_name}: {len(ins)} instructions, longest loop "
             f"{longest}{per_cell}")
 
@@ -1160,6 +1183,8 @@ def kernel_k8(dev, rs) -> dict:
         m_p, s_p = K8.kde_scaled_torch(*args)
         same_m = bool(torch.equal(m, m_p))
         rel = float(((s - s_p).abs() / s_p).max())
+        s_differ = int((s != s_p).sum())
+        W, C, blocks, threads = K8.kde_scaled_geometry(R, n_pad, n, G)
         err = float(max((m - m_p).abs().max(), (s - s_p).abs().max()))
         values = [V[r, :n].astype(np.float64) for r in range(R)]
         t0 = time.perf_counter()
@@ -1176,6 +1201,10 @@ def kernel_k8(dev, rs) -> dict:
         evals = float(R * n * G)
         moved = 4 * R * n + nbytes(*args[1:]) + 8 * R * G
         bound_ms, bound_by = kde_bound(evals, moved)
+        log(f"K8 kde_scaled, {name} ({R} regions x {n} values, G {G}): "
+            f"launch W {W} warps a cell group ({32 * W} lanes), {C} cells a "
+            f"thread, {blocks} blocks of {threads} threads; s not bit-equal "
+            f"to the plain version's in {s_differ} of {R * G} cells")
         log(f"K8 kde_scaled, {name} ({R} regions x {n} values, G {G}): m "
             f"equal {same_m}, s max rel diff {rel:.3g} (tolerance 1e-6), max "
             f"|diff| {err:.3g}; certified {sum(ok for ok, _d in dec)} of {R} "

@@ -130,6 +130,12 @@ def load() -> ctypes.CDLL:
             lib.otter_kde_scaled.restype = _I
             lib.otter_kde_scaled.argtypes = [_P, _I, _P, _P, _P, _I, _I, _I,
                                              _P, _P, _P]
+            lib.otter_kde_scaled_launch.restype = _I
+            lib.otter_kde_scaled_launch.argtypes = [_P, _I, _P, _P, _P, _I,
+                                                    _I, _I, _I, _I, _P, _P,
+                                                    _P]
+            lib.otter_kde_scaled_geometry.restype = _I
+            lib.otter_kde_scaled_geometry.argtypes = [_I, _I, _I, _I, _P]
             lib.otter_cuda_error_string.restype = ctypes.c_char_p
             lib.otter_cuda_error_string.argtypes = [_I]
             _lib = lib

@@ -17,6 +17,7 @@ of the same arithmetic (the halving loop as in the JAX function), and
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -25,6 +26,10 @@ from .myers_pallas import data_ptr
 
 # elements of one (regions, G, n_pad) slab of the plain version
 _PLAIN_SLAB = 1 << 24
+# the warps W that may share a grid cell's values (kWarps = 16 a block)
+# and the grid cells C a thread may hold
+WARPS = (1, 2, 4, 8, 16)
+CELLS = (4, 8)
 
 
 def _check(vals, nvals, bw, xs) -> None:
@@ -73,12 +78,17 @@ def kde_scaled_torch(vals: torch.Tensor, nvals: torch.Tensor,
 
 def kde_scaled_cuda(vals: torch.Tensor, nvals: torch.Tensor,
                     bw: torch.Tensor, xs: torch.Tensor,
-                    n_max: Optional[int] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    n_max: Optional[int] = None, *, warps: int = 0,
+                    cells: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8 on the card (``csrc/kde_scaled.cu``): one launch on the current
     stream, no synchronisation. ``n_max``: the largest nvals, which the
     caller knows on the host (default n_pad); it sizes the kernel's
-    shared-memory stage. Raises on bad inputs or a refused launch."""
+    shared-memory stage. ``warps`` and ``cells``: the warps W that share a
+    grid cell's values (one of ``WARPS``) and the grid cells C a thread
+    holds (one of ``CELLS``), for the tests and the A/B tool; 0 takes the
+    launcher's rule (``kde_scaled_geometry``), as every caller of the
+    package does. Every W and C give the same bits. Raises on bad inputs
+    or a refused launch."""
     from . import _build
 
     _check(vals, nvals, bw, xs)
@@ -93,16 +103,32 @@ def kde_scaled_cuda(vals: torch.Tensor, nvals: torch.Tensor,
     lib = _build.load()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     with torch.cuda.device(vals.device):
-        err = lib.otter_kde_scaled(data_ptr(vals), n_pad, data_ptr(nvals),
-                                   data_ptr(bw), data_ptr(xs), G, R,
-                                   n_pad if n_max is None else n_max,
-                                   data_ptr(m), data_ptr(s), stream)
+        err = lib.otter_kde_scaled_launch(
+            data_ptr(vals), n_pad, data_ptr(nvals), data_ptr(bw),
+            data_ptr(xs), G, R, n_pad if n_max is None else n_max, cells,
+            warps, data_ptr(m), data_ptr(s), stream)
     _build.check(lib, err, "kde_scaled_cuda")
     kde_scaled_cuda.launches += 1
     return m, s
 
 
 kde_scaled_cuda.launches = 0
+
+
+def kde_scaled_geometry(regions: int, n_pad: int, n_max: int,
+                        grid: int) -> Tuple[int, int, int, int]:
+    """(W, cells a thread, blocks, threads a block): the launch
+    ``kde_scaled_cuda`` makes by its rule for ``regions`` rows of ``n_pad``
+    lanes, the largest ``n_max`` values, over ``grid`` grid cells (needs
+    the built library, so a CUDA toolchain)."""
+    from . import _build
+
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.otter_kde_scaled_geometry(
+        n_pad, n_max, grid, regions, ctypes.addressof(out)),
+        "kde_scaled_geometry")
+    return tuple(out)
 
 
 def kde_scaled(vals: torch.Tensor, nvals: torch.Tensor, bw: torch.Tensor,

@@ -53,6 +53,16 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
+// the H100's 132 SMs
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 132;
+  return 0;
+}
 
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };

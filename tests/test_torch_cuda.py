@@ -377,8 +377,25 @@ def test_affine_tb_cuda_warps_match_one_warp_launches(cuda_device, k):
 
 
 # (regions, nvals) of chip_smoke.py's K8 sets (hifi-tr-1.5k's batch, the
-# refscale region, the largest batch) and regions of 1 and 9 values
-K8_SHAPES = [(32, 4950), (1, 19900), (256, 19900), (4, 1), (4, 9)]
+# refscale region, the largest batch), regions of 1 and 9 values, and the
+# launch geometry's edges: two regions (W = 4 where one takes 8), and a
+# region past the 200 KB shared-memory stage (read from device memory)
+K8_SHAPES = [(32, 4950), (1, 19900), (256, 19900), (4, 1), (4, 9),
+             (2, 4950), (1, 60000)]
+
+
+def _k8_args(device, R, n):
+    from otter_tpu_torch.ops.kde import kde_grid
+
+    rng = np.random.default_rng(R * 100003 + n)
+    n_pad = max(8, 1 << (n - 1).bit_length())
+    V = np.zeros((R, n_pad), dtype=np.float32)
+    V[:, :n] = np.clip(rng.normal(0.05, 0.05, (R, n)), 0, 1)
+    nv = np.full(R, n, dtype=np.int32)
+    nv[-1] = max(1, n // 2)                 # a ragged row
+    bw = np.where(np.arange(R) % 2, 0.015, 0.01).astype(np.float32)
+    return [torch.from_numpy(a).to(device)
+            for a in (V, nv, bw, kde_grid(0.0025).astype(np.float32))]
 
 
 @pytest.mark.parametrize("shape", K8_SHAPES)
@@ -387,24 +404,32 @@ def test_kde_scaled_cuda_matches_plain(cuda_device, shape):
     same IEEE f32 ops), s to a relative 1e-6 (expf against torch.exp, the
     same halving order)."""
     from otter_tpu_torch.kernels import kde_scaled as K8
-    from otter_tpu_torch.ops.kde import kde_grid
 
     R, n = shape
-    rng = np.random.default_rng(R * 100003 + n)
-    n_pad = max(8, 1 << (n - 1).bit_length())
-    V = np.zeros((R, n_pad), dtype=np.float32)
-    V[:, :n] = np.clip(rng.normal(0.05, 0.05, (R, n)), 0, 1)
-    nv = np.full(R, n, dtype=np.int32)
-    nv[-1] = max(1, n // 2)                 # a ragged row
-    bw = np.where(np.arange(R) % 2, 0.015, 0.01).astype(np.float32)
-    args = [torch.from_numpy(a).to(cuda_device)
-            for a in (V, nv, bw, kde_grid(0.0025).astype(np.float32))]
+    args = _k8_args(cuda_device, R, n)
     before = K8.kde_scaled_cuda.launches
     m, s = K8.kde_scaled(*args, n_max=n)
     assert K8.kde_scaled_cuda.launches == before + 1
     m_p, s_p = K8.kde_scaled_torch(*args)
     assert torch.equal(m, m_p)
     torch.testing.assert_close(s, s_p, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(32, 4950), (1, 19900), (3, 1000),
+                                   (1, 60000)])
+def test_kde_scaled_cuda_every_warps_same_bits(cuda_device, shape):
+    """Every W (the warps that split a cell's values) and C (the cells a
+    thread holds) keep the halving order, so m and s are the same bits at
+    W = 1 ... 16 and C = 4, 8 as by the rule."""
+    from otter_tpu_torch.kernels import kde_scaled as K8
+
+    R, n = shape
+    args = _k8_args(cuda_device, R, n)
+    m, s = K8.kde_scaled_cuda(*args, n_max=n)
+    for C in K8.CELLS:
+        for W in K8.WARPS:
+            mw, sw = K8.kde_scaled_cuda(*args, n_max=n, warps=W, cells=C)
+            assert torch.equal(m, mw) and torch.equal(s, sw), (W, C)
 
 
 def test_kde_scaled_cuda_refused_launch_raises(cuda_device):

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's K7, K2, K3 and K4 kernels of one checkout on one CUDA
-card.
+"""Time the port's K7, K2, K3, K4 and K8 kernels of one checkout on one
+CUDA card.
 
-    python3 tools/torch_kernels_ab.py ROOT [NAME]
+    python3 tools/torch_kernels_ab.py ROOT [NAME [KERNELS]]
 
 imports ``otter_tpu_torch`` from the checkout at ROOT (so two trees, such as
 a commit and its parent unpacked side by side, can be compared: run them in
 turns, A B B A, in one session on one card) and prints the card line, then
-one JSON line per set with its mean kernel time and a hash of its result:
+one JSON line per set with its mean kernel time and a hash of its result
+(KERNELS, a comma-separated subset such as ``K8``, limits the sets):
 
 * K7 (``edit_banded``) at k = 63 (1,024 pairs of 1.5-1.8 kb), 1023 (256 of
   2.5-3 kb), 4095 (32 of 5-6 kb) and 32767 (2 of 7-8 kb), reads with N
@@ -25,7 +26,12 @@ one JSON line per set with its mean kernel time and a hash of its result:
   2,048 reads of a 10.3 kb allele that miss up to 2 kb of its start (tb
   up to 2,000) at k = 63; where the checkout's wrapper takes ``group``,
   K3 and K4 also at every G the window allows, and K4 is given its
-  widest free begin where the wrapper takes ``tb_max``.
+  widest free begin where the wrapper takes ``tb_max``;
+* K8 (``kde_scaled``) on the three sets of ``chip_smoke.py``
+  (hifi-tr-1.5k's batch of 32 regions x 4,950 values, the refscale region
+  1 x 19,900, the largest batch 256 x 19,900) over the 401-cell grid, the
+  hash over (m, s); where the checkout's wrapper takes ``warps``, also at
+  every W and cells a thread C, with the launch its rule picks.
 
 Inputs come from fixed seeds, so equal hashes mean equal results. Needs a
 card; nothing is written.
@@ -63,14 +69,52 @@ def with_n(rs, s: str, k: int) -> str:
     return c.decode()
 
 
+# K8's sets, as chip_smoke.py's KDE_SETS: (name, regions, values a region)
+KDE_SETS = (("hifi-tr-1.5k batch", 32, 4950), ("refscale region", 1, 19900),
+            ("largest batch", 256, 19900))
+
+
+def kde_sets(torch, dev, reps_for):
+    """K8 launches of KDE_SETS from fixed seeds: pair distances shaped like
+    a two-allele locus (two thirds near 0.004, a third near 0.17), the
+    bandwidths 0.01 and 0.015 in turns, chip_smoke.py's inputs."""
+    from otter_tpu_torch.ops.kde import kde_grid
+
+    xs = torch.from_numpy(kde_grid(0.0025).astype(np.float32)).to(dev)
+    for what, R, n in KDE_SETS:
+        rs = np.random.default_rng(R * 100003 + n)
+        near = rs.normal(0.004, 0.0015, (R, n - n // 3))
+        far = rs.normal(0.17, 0.01, (R, n // 3))
+        n_pad = 1 << (n - 1).bit_length()
+        V = np.zeros((R, n_pad), dtype=np.float32)
+        V[:, :n] = np.clip(np.concatenate([near, far], axis=1), 0.0, 1.0)
+        bw = np.where(np.arange(R) % 2, 0.015, 0.01).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev)
+                for a in (V, np.full(R, n, dtype=np.int32), bw)] + [xs]
+        yield f"K8 {what}, {R} x {n}", args, n, reps_for(R * n)
+
+
+def refscale_reads():
+    """100 reads of each of two 10 kb alleles (the second 300 bp longer) at
+    0.2% substitutions, from a fixed seed."""
+    rs = np.random.default_rng(21)
+    a = acgt(rs, 10000)
+    b = a + "CAG" * 100
+    ra = [substitute(rs, a, 0.002) for _ in range(100)]
+    rb = [substitute(rs, b, 0.002) for _ in range(100)]
+    return ra, rb
+
+
 def main() -> int:
     root = os.path.abspath(sys.argv[1])
     name = sys.argv[2] if len(sys.argv) > 2 else os.path.basename(root)
+    only = set(sys.argv[3].split(",")) if len(sys.argv) > 3 else None
     sys.path.insert(0, root)
     import torch
 
     from otter_tpu_torch.kernels import _build
     from otter_tpu_torch.kernels import edit_banded as K7
+    from otter_tpu_torch.kernels import kde_scaled as K8
     from otter_tpu_torch.kernels import myers_banded as K34
     from otter_tpu_torch.kernels import myers_striped as K2
     from otter_tpu_torch.kernels.myers_pallas import int32_tensor
@@ -97,40 +141,67 @@ def main() -> int:
         return t0.elapsed_time(t1) / reps, out
 
     def emit(what, ms, out, **kw):
-        h = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:12]
+        outs = out if isinstance(out, tuple) else (out,)
+        h = hashlib.sha1(b"".join(o.cpu().numpy().tobytes()
+                                  for o in outs)).hexdigest()[:12]
         print(json.dumps({"tree": name, "set": what, **kw,
                           "ms": round(ms, 4), "hash": h}), flush=True)
 
-    for k, n_pairs, lo, hi, reps in ((63, 1024, 1500, 1800, 3),
-                                     (1023, 256, 2500, 3000, 2),
-                                     (4095, 32, 5000, 6000, 1),
-                                     (32767, 2, 7000, 8000, 1)):
-        rs = np.random.default_rng(k)
-        pairs = []
-        for _ in range(n_pairs):
-            s = with_n(rs, acgt(rs, int(rs.integers(lo, hi + 1))), 3)
-            pairs.append((s, with_n(rs, substitute(rs, s, 0.002), 2)))
-        a = [int32_tensor(x, dev) for x in K7.pack_banded(pairs, k)]
-        ms, out = time_ms(lambda: K7.edit_banded(*a, k), reps)
-        emit(f"K7 k {k}, {n_pairs} pairs of {lo}-{hi}", ms, out)
+    def wanted(kernel):
+        return only is None or kernel in only
 
-    for n_jobs in (300, 1035, 16384):
-        rs = np.random.default_rng(n_jobs)
-        alleles = [acgt(rs, int(rs.integers(1500, 2401))) for _ in range(64)]
-        oriented, tbs, tes = [], [], []
-        for q in range(n_jobs):
-            al = alleles[q % 64]
-            cut = int(rs.integers(400, 1401))
-            oriented.append((substitute(rs, al[:cut], 0.002), al))
-            tbs.append(0)
-            tes.append(len(al) - cut)
-        args = K2.oriented_inputs(oriented, tbs, tes, dev)
-        ms, out = time_ms(lambda: K2.myers_striped(*args), 3)
-        emit(f"K2 {n_jobs} jobs", ms, out, G="auto")
-        for G in getattr(K2, "GROUPS", ()):
-            ms, out = time_ms(
-                lambda: K2.myers_striped_cuda(*args, group=G), 3)
-            emit(f"K2 {n_jobs} jobs", ms, out, G=G)
+    if wanted("K8"):
+        sweep = "warps" in inspect.signature(K8.kde_scaled_cuda).parameters
+        for what, args, n, reps in kde_sets(
+                torch, dev,
+                lambda evals: min(200, max(20, int(4e9 // (evals * 401))))):
+            kw = {}
+            if sweep:
+                W, C, blocks, threads = K8.kde_scaled_geometry(
+                    args[0].shape[0], args[0].shape[1], n, args[3].shape[0])
+                kw = {"rule": {"W": W, "C": C, "blocks": blocks,
+                               "threads": threads}}
+            ms, out = time_ms(lambda: K8.kde_scaled_cuda(*args, n_max=n),
+                              reps)
+            emit(what, ms, out, W="auto", **kw)
+            for C in (getattr(K8, "CELLS", ()) if sweep else ()):
+                for W in K8.WARPS:
+                    ms, out = time_ms(lambda: K8.kde_scaled_cuda(
+                        *args, n_max=n, warps=W, cells=C), reps)
+                    emit(what, ms, out, W=W, C=C)
+    if wanted("K7"):
+        for k, n_pairs, lo, hi, reps in ((63, 1024, 1500, 1800, 3),
+                                         (1023, 256, 2500, 3000, 2),
+                                         (4095, 32, 5000, 6000, 1),
+                                         (32767, 2, 7000, 8000, 1)):
+            rs = np.random.default_rng(k)
+            pairs = []
+            for _ in range(n_pairs):
+                s = with_n(rs, acgt(rs, int(rs.integers(lo, hi + 1))), 3)
+                pairs.append((s, with_n(rs, substitute(rs, s, 0.002), 2)))
+            a = [int32_tensor(x, dev) for x in K7.pack_banded(pairs, k)]
+            ms, out = time_ms(lambda: K7.edit_banded(*a, k), reps)
+            emit(f"K7 k {k}, {n_pairs} pairs of {lo}-{hi}", ms, out)
+
+    if wanted("K2"):
+        for n_jobs in (300, 1035, 16384):
+            rs = np.random.default_rng(n_jobs)
+            alleles = [acgt(rs, int(rs.integers(1500, 2401)))
+                       for _ in range(64)]
+            oriented, tbs, tes = [], [], []
+            for q in range(n_jobs):
+                al = alleles[q % 64]
+                cut = int(rs.integers(400, 1401))
+                oriented.append((substitute(rs, al[:cut], 0.002), al))
+                tbs.append(0)
+                tes.append(len(al) - cut)
+            args = K2.oriented_inputs(oriented, tbs, tes, dev)
+            ms, out = time_ms(lambda: K2.myers_striped(*args), 3)
+            emit(f"K2 {n_jobs} jobs", ms, out, G="auto")
+            for G in getattr(K2, "GROUPS", ()):
+                ms, out = time_ms(
+                    lambda: K2.myers_striped_cuda(*args, group=G), 3)
+                emit(f"K2 {n_jobs} jobs", ms, out, G=G)
 
     def banded(what, oriented, tbs, tes, k, ef):
         pool, ip, it, nl, ml, tb, te, nw, tl = K2.oriented_inputs(
@@ -153,49 +224,50 @@ def main() -> int:
                     ms, out = time_ms(lambda: fn(*args, group=G, **kw), 3)
                     emit(what, ms, out, G=G)
 
-    rs = np.random.default_rng(63)
-    reads = []
-    for _ in range(32):
-        s = acgt(rs, int(rs.integers(2300, 2501)))
-        reads += [substitute(rs, s, 0.002) for _ in range(4)]
-    iu, ju = np.triu_indices(len(reads), 1)
-    pick = rs.choice(len(iu), size=min(8192, len(iu)), replace=False)
-    pairs = [(reads[i], reads[j]) if len(reads[i]) <= len(reads[j])
-             else (reads[j], reads[i]) for i, j in zip(iu[pick], ju[pick])]
-    zero = [0] * len(pairs)
-    banded(f"K3 k 63, {len(pairs)} pairs of 2.3-2.5 kb", pairs, zero, zero,
-           63, False)
-
-    rs = np.random.default_rng(21)
-    a = acgt(rs, 10000)
-    b = a + "CAG" * 100
-    ra = [substitute(rs, a, 0.002) for _ in range(100)]
-    rb = [substitute(rs, b, 0.002) for _ in range(100)]
-    iu, ju = np.triu_indices(100, 1)
-    same = [(r[i], r[j]) for r in (ra, rb) for i, j in zip(iu, ju)]
-    cross = [(x, y) for x in ra for y in rb]
-    for k, pairs in ((63, same), (511, cross)):
+    if wanted("K3"):
+        rs = np.random.default_rng(63)
+        reads = []
+        for _ in range(32):
+            s = acgt(rs, int(rs.integers(2300, 2501)))
+            reads += [substitute(rs, s, 0.002) for _ in range(4)]
+        iu, ju = np.triu_indices(len(reads), 1)
+        pick = rs.choice(len(iu), size=min(8192, len(iu)), replace=False)
+        pairs = [(reads[i], reads[j]) if len(reads[i]) <= len(reads[j])
+                 else (reads[j], reads[i])
+                 for i, j in zip(iu[pick], ju[pick])]
         zero = [0] * len(pairs)
-        banded(f"K3 k {k}, {len(pairs)} refscale pairs of 10 kb", pairs,
-               zero, zero, k, False)
+        banded(f"K3 k 63, {len(pairs)} pairs of 2.3-2.5 kb", pairs, zero,
+               zero, 63, False)
 
-    rs = np.random.default_rng(4096)
-    alleles = [acgt(rs, int(rs.integers(2400, 2601))) for _ in range(64)]
-    jobs, tes = [], []
-    for q in range(4096):
-        al = alleles[q % 64]
-        cut = int(rs.integers(2100, 2401))
-        jobs.append((substitute(rs, al[:cut], 0.002), al))
-        tes.append(len(al) - cut)
-    banded("K4 k 63, 4096 reassignment jobs of 2.1-2.4 kb", jobs,
-           [0] * len(jobs), tes, 63, True)
-    jobs, tbs = [], []
-    for q in range(2048):
-        cut = int(rs.integers(0, 2001))
-        jobs.append((substitute(rs, rb[0][cut:], 0.002), rb[0]))
-        tbs.append(cut)
-    banded("K4 k 63, 2048 jobs of 10 kb with tb 0-2000", jobs, tbs,
-           [0] * len(jobs), 63, True)
+        ra, rb = refscale_reads()
+        iu, ju = np.triu_indices(100, 1)
+        same = [(r[i], r[j]) for r in (ra, rb) for i, j in zip(iu, ju)]
+        cross = [(x, y) for x in ra for y in rb]
+        for k, pairs in ((63, same), (511, cross)):
+            zero = [0] * len(pairs)
+            banded(f"K3 k {k}, {len(pairs)} refscale pairs of 10 kb", pairs,
+                   zero, zero, k, False)
+
+    if wanted("K4"):
+        rs = np.random.default_rng(4096)
+        alleles = [acgt(rs, int(rs.integers(2400, 2601)))
+                   for _ in range(64)]
+        jobs, tes = [], []
+        for q in range(4096):
+            al = alleles[q % 64]
+            cut = int(rs.integers(2100, 2401))
+            jobs.append((substitute(rs, al[:cut], 0.002), al))
+            tes.append(len(al) - cut)
+        banded("K4 k 63, 4096 reassignment jobs of 2.1-2.4 kb", jobs,
+               [0] * len(jobs), tes, 63, True)
+        jobs, tbs = [], []
+        allele = refscale_reads()[1][0]
+        for q in range(2048):
+            cut = int(rs.integers(0, 2001))
+            jobs.append((substitute(rs, allele[cut:], 0.002), allele))
+            tbs.append(cut)
+        banded("K4 k 63, 2048 jobs of 10 kb with tb 0-2000", jobs, tbs,
+               [0] * len(jobs), 63, True)
     return 0
 
 
