@@ -12,13 +12,17 @@ exits non-zero:
    prints each kernel's registers and spills and its SASS longest loop
    (for K8, each step loop's SASS per (cell, value));
 3. kernels: each kernel of the assemble path (K1 Myers pool, K2 striped
-   Myers, K3 / K4 banded Myers, K7 banded edit DP, K5 / K6 affine
-   traceback with all bits / with checkpoints, K8 scaled KDE)
+   Myers, K3 / K4 banded Myers, K7 banded edit DP, K9 banded two-sided
+   ends-free edit DP, K5 / K6 affine traceback with all bits / with
+   checkpoints, K8 scaled KDE)
    equals its plain PyTorch version on the card, exactly, and agrees with
    the package's host oracles (native C++ distances, the numpy ends-free DP,
    the native affine cigar ladder); then the time of the kernel and of the
    plain version on one workload of the shape the main path gives it, its
-   band (or DP) Gcells/s and its bound; K2 also at every lane-group size G
+   band (or DP) Gcells/s and its bound; K9 (held against the numpy pass of
+   ``edit_ends_free_batch`` too) at k = 32 ... 511 (the warp kernel) and
+   1023, 2047 on 10 kb reads (the block kernel), timed on 64 jobs shaped
+   like the route-coverage cell's passes; K2 also at every lane-group size G
    on its timing set, K7 also at k = 1023 (its block kernel); K3 and K4 at
    every lane-group size on their timing sets and on sets shaped like the
    reference-default region's rungs (10 kb pairs at k = 63 and 511, K4 with
@@ -69,11 +73,22 @@ exits non-zero:
    again, each output byte-identical to phase 5's, each process's kernel
    launches read from its own counters (K1, K2, K5 and K8 must launch in
    every process), walls from start to exit; genotype64 in two processes
-   with the gather, its VCF byte-identical to phase 6's.
+   with the gather, its VCF byte-identical to phase 6's;
+8. mesh mode (``params.device = "mesh"``: the distance pairs, the
+   ends-free jobs, the pooled KDE and genotype's GEMM split over the cards
+   of one process) on the mesh of every visible card and on two shards of
+   card 0: every phase 5 cell, byte-identical to its phase 5 card output
+   (K1, K2, K5 and K8 must launch in hifi-tr-1.5k, K9 in the route-coverage
+   run, and every kernel across the cells), hifi-tr-1.5k once more through
+   ``params.device = "mesh"`` with no backend, genotype64 (VCF
+   byte-identical to phase 6's) and compare (TSV byte-identical to phase
+   6's), with walls, each shard's pair and job counts and the kernel
+   launches; then the route-coverage cell once more with K9's inputs
+   recorded, and K9 and its plain version timed on its largest pass.
 
 The line before the last is a JSON object with each kernel's launches in
-phase 5, its largest disagreement with its plain version, its times and its
-bound; the last line is ``{"ok": true, "device": {...}}``. Every input is
+phase 5 (K9's in phase 8, its only path), its largest disagreement with its
+plain version, its times and its bound; the last line is ``{"ok": true, "device": {...}}``. Every input is
 made from a seed; nothing is read from the network.
 
     python3 chip_smoke.py --profile
@@ -127,16 +142,19 @@ KERNELS = {
                        "otter_tpu/kernels/affine_pallas.py:395"),
     "kde_scaled": ("otter_tpu_torch/csrc/kde_scaled.cu",
                    "otter_tpu/parallel/mesh.py:111 (jnp)"),
+    "edit_banded_ends_free": ("otter_tpu_torch/csrc/edit_banded.cu",
+                              "otter_tpu/kernels/edit_pallas.py:127 (jnp)"),
 }
 
 
 # int32 operations per DP cell, counted from the sources: K1-K4 advance 64
 # cells with ~36 int32 operations (myers.cu's note), K7 ~10 per band cell,
-# K5 / K6 ~28 per band cell (the DP once; K6's recompute is not counted)
+# K9 ~12 (K7's, the max of column 0 and the bounded text read), K5 / K6
+# ~28 per band cell (the DP once; K6's recompute is not counted)
 OPS_PER_CELL = {"myers_pool": 36 / 64, "myers_striped": 36 / 64,
                 "myers_banded": 36 / 64, "myers_banded_ef": 36 / 64,
-                "edit_banded": 10.0, "affine_tb": 28.0,
-                "affine_tb_ckpt": 28.0}
+                "edit_banded": 10.0, "edit_banded_ends_free": 12.0,
+                "affine_tb": 28.0, "affine_tb_ckpt": 28.0}
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES = 132 * 64
 MUFU_LANES = 132 * 16
@@ -164,7 +182,8 @@ def cuda_wrappers() -> dict:
             "edit_banded": edit_banded.edit_banded_cuda,
             "affine_tb": affine_tb.affine_tb_cuda,
             "affine_tb_ckpt": affine_tb.affine_tb_ckpt_cuda,
-            "kde_scaled": kde_scaled.kde_scaled_cuda}
+            "kde_scaled": kde_scaled.kde_scaled_cuda,
+            "edit_banded_ends_free": edit_banded.edit_banded_ends_free_cuda}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -926,6 +945,87 @@ def kernel_k7(dev, rs) -> dict:
     return out
 
 
+def ends_free_jobs(rs, n, lo, hi, reach):
+    """Two-sided and non-ACGT ends-free jobs of the host bucket: a read of
+    lo-hi bp with 3 N bases against a mutated piece of it (up to ``reach``
+    shorter), with frees on both sides within ``reach``."""
+    jobs = []
+    for q in range(n):
+        t = with_n(rs, rand_acgt(rs, int(rs.integers(lo, hi + 1))), 3)
+        a = int(rs.integers(0, reach // 2 + 1))
+        b = len(t) - int(rs.integers(0, reach // 2 + 1))
+        p = mutate(rs, t[a:b], float(rs.choice([0.002, 0.01, 0.05])))
+        ld = abs(len(t) - len(p))
+        frees = [(ld, ld, 0, 0), (0, 0, a, len(t) - b), (a, 0, 0, ld),
+                 (0, ld, a, 0)][q % 4]
+        jobs.append((p, t, *frees) if q % 2 else (t, p, *frees))
+    return jobs
+
+
+def reassignment_shaped_jobs(rs, n):
+    """``n`` jobs shaped like the route-coverage cell's K9 passes: a
+    spanning read of 1.5-1.8 kb with N bases against a non-spanning read
+    200-450 bp shorter, the pattern's end free past the difference (reach
+    <= 496, so the ladder's k = 512: the block kernel)."""
+    jobs = []
+    for _ in range(n):
+        p = with_n(rs, rand_acgt(rs, int(rs.integers(1500, 1801))), 3)
+        d = int(rs.integers(200, 451))
+        t = mutate(rs, p[: len(p) - d], 0.002)
+        jobs.append((p, t, 0, min(496, d + int(rs.integers(0, 40))), 0, 0))
+    return jobs
+
+
+def k9_args(dev, jobs, k):
+    from otter_tpu_torch.kernels import edit_banded as K9
+    from otter_tpu_torch.kernels.myers_pallas import int32_tensor
+
+    return [int32_tensor(x, dev)
+            for x in K9.pack_ends_free(jobs, range(len(jobs)), k)]
+
+
+def kernel_k9(dev, rs) -> dict:
+    """K9 against its plain version and the numpy pass of
+    edit_ends_free_batch, exact: the warp kernel at k = 32 ... 511 on reads
+    of 0.1-2 kb, the block kernel at k = 1023 and 2047 on 10 kb reads;
+    timed on a set shaped like the route-coverage cell's passes."""
+    import torch
+
+    from otter_tpu_torch.kernels import edit_banded as K9
+    from otter_tpu_torch.ops.align_batch import _ends_free_banded_numpy
+
+    for k, n, lo, hi in ((32, 64, 100, 400), (64, 64, 200, 800),
+                         (128, 48, 300, 1200), (256, 32, 600, 2000),
+                         (511, 24, 1100, 2000), (1023, 2, 10000, 10400),
+                         (2047, 2, 10000, 10400)):
+        jobs = ends_free_jobs(rs, n, lo, hi, min(k - 16, lo // 2))
+        a = k9_args(dev, jobs, k)
+        kern = K9.edit_banded_ends_free(*a, k)
+        plain = K9.edit_banded_ends_free_torch(*a, k)
+        want = np.minimum(_ends_free_banded_numpy(jobs, range(len(jobs)), k),
+                          K9.INF)
+        one = K9.edit_banded_ends_free(*k9_args(dev, jobs[:1], k), k)
+        check(bool(torch.equal(kern, plain)) and np.array_equal(
+            kern.cpu().numpy(), want) and int(one[0]) == int(kern[0]),
+            f"K9 disagrees with its plain version or the numpy pass at k {k}")
+        log(f"K9 k {k} ({'warp' if k <= 511 else 'block'} kernel): {n} jobs "
+            f"of {lo}-{hi} bp and a launch of one job, == plain and the "
+            f"numpy pass (max |diff| 0); "
+            f"{int((kern < K9.INF).sum())} jobs with an end cell")
+    tjobs = reassignment_shaped_jobs(rs, 64)
+    a = k9_args(dev, tjobs, 512)
+    cells = float(sum(len(p) for p, *_r in tjobs) * 2 * 513)
+    ms = time_ms(lambda: K9.edit_banded_ends_free(*a, 512), 3)
+    plain_ms, want = time_once(lambda: K9.edit_banded_ends_free_torch(*a, 512))
+    check(bool(torch.equal(K9.edit_banded_ends_free(*a, 512), want)),
+          "K9 disagrees with its plain version on the timing set")
+    return report("edit_banded_ends_free",
+                  "K9 edit_banded_ends_free (k 32-2047; timing set: 64 "
+                  "route-coverage-shaped jobs at k 512, band cells)",
+                  len(tjobs), cells, True, True, ms, plain_ms, 0,
+                  nbytes(*a) + 4 * len(tjobs))
+
+
 def edit_sweep(dev) -> None:
     """K7 at k = 31 ... 1023 (a warp per pair to 511, a block above),
     exact against the plain version: pairs of 30 bp to 2 kb with N bases,
@@ -1228,7 +1328,9 @@ def phase_kernels(dev) -> dict:
     for key, fn in (("myers_pool", kernel_k1), ("myers_striped", kernel_k2),
                     ("myers_banded", kernel_k3),
                     ("myers_banded_ef", kernel_k4),
-                    ("edit_banded", kernel_k7), ("affine_tb", kernel_k5),
+                    ("edit_banded", kernel_k7),
+                    ("edit_banded_ends_free", kernel_k9),
+                    ("affine_tb", kernel_k5),
                     ("affine_tb_ckpt", kernel_k6), ("kde_scaled", kernel_k8)):
         out[key] = fn(dev, rs)
         log(f"-- {key} checked, {time.perf_counter() - t0:.1f} s into phase 3")
@@ -1333,6 +1435,10 @@ def phase_small(tmp: str) -> None:
         check(got == want, f"small {label}: card output differs from the "
               "host engine")
 
+
+# kernels of mesh mode alone (phase 8): device="cuda" leaves their jobs on
+# the host
+MESH_KERNELS = ("edit_banded_ends_free",)
 
 # phase 5's cells: (name, tandem_repeat_loci arguments, with rates)
 CELLS = (
@@ -1477,8 +1583,8 @@ def kde_on_off(name: str, bam: str, bed: str) -> None:
 
 
 def phase_full(tmp: str, fixtures: list, oracle):
-    """Returns each kernel's launches, and hifi-tr-1.5k's (counters, card
-    output, wall)."""
+    """Returns each kernel's launches, and each cell's (counters, card
+    output, wall) by name."""
     log("== phase 5: full-size main path")
     wrappers = cuda_wrappers()
     for fn in wrappers.values():
@@ -1498,11 +1604,12 @@ def phase_full(tmp: str, fixtures: list, oracle):
         if rates:
             check(cell["kde_scaled"] > 0, f"{name}: K8 did not launch")
     log(f"kernel launches in phase 5: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in MESH_KERNELS]
     check(not missing, f"kernels never launched on the main path: {missing}")
     kde_on_off("cell hifi-tr-1.5k", *fixtures[0])
     kde_on_off("refscale region", *fixtures[3])
-    return launches, runs["cell hifi-tr-1.5k"]
+    return launches, runs
 
 
 # ---------------------------------------------------------------------------
@@ -1615,6 +1722,7 @@ def compare_entry(tmp: str) -> None:
         f"the card, scalar path {t_scalar:.3f} s")
     check(got.getvalue() == want.getvalue() and pairs > 0 and launched,
           "compare: the card's TSV differs from the scalar path")
+    return dict(truth=truth, query=query, bed=bed, text=got.getvalue())
 
 
 def vcf2mat_entry(vcf: str, bed: str) -> None:
@@ -1696,15 +1804,16 @@ def wgat_entry(tmp: str) -> None:
         f"{len(dele)} bp; {wall:.3f} s")
 
 
-def phase_entry_points(tmp: str) -> dict:
-    """Returns genotype64's cohort and VCF (genotype_cohort)."""
+def phase_entry_points(tmp: str):
+    """Returns genotype64's cohort and VCF (genotype_cohort), and compare's
+    inputs and card TSV (compare_entry)."""
     log("== phase 6: the other entry points")
     g64 = genotype_cohort(tmp, "genotype64", 64, 32, 5)
     genotype_cohort(tmp, "genotype500", 500, 8, 23)
-    compare_entry(tmp)
+    cmp = compare_entry(tmp)
     vcf2mat_entry(g64["vcf"], g64["bed"])
     wgat_entry(tmp)
-    return g64
+    return g64, cmp
 
 
 # ---------------------------------------------------------------------------
@@ -1880,6 +1989,174 @@ def phase_pools_processes(tmp: str, fixture, hifi_text: str,
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: mesh mode
+# ---------------------------------------------------------------------------
+
+# the kernels each mesh run of a cell must launch
+MESH_CELL_KERNELS = {"cell hifi-tr-1.5k": ("myers_pool", "myers_striped",
+                                           "affine_tb", "kde_scaled"),
+                     "route coverage (parity only)": (
+                         "edit_banded_ends_free",)}
+
+
+def mesh_assemble(name: str, bam: str, bed: str, mesh, want: str) -> dict:
+    """One cell in mesh mode, byte-identical to phase 5's card output
+    ``want``: with ``mesh`` None through ``params.device = "mesh"`` (the
+    visible cards, as a user runs it), else over the given devices. Prints
+    the wall, each shard's pair and job counts and the kernel launches;
+    returns the launches."""
+    import torch
+
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+
+    wrappers = cuda_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    backend = TorchDistBackend("mesh", mesh=mesh)
+    t0 = time.perf_counter()
+    got = run(bam, bed, backend, device="mesh")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in wrappers.items()}
+    shards = [{k: v for k, v in c.items() if v and k != "cells"}
+              for c in backend.engine.shard_counters()]
+    c = backend.engine.counters()
+    log(f"  {name}: wall {wall:.3f} s, identical to phase 5: {got == want};"
+        f" jobs_host {c['jobs_host']}, jobs_k9 {c['jobs_k9']}; per shard "
+        f"{json.dumps(shards)}; launches "
+        f"{json.dumps({k: v for k, v in launched.items() if v})}")
+    check(got == want, f"mesh mode, {name}: output differs from phase 5's")
+    missing = [k for k in MESH_CELL_KERNELS.get(name, ()) if not launched[k]]
+    check(not missing, f"mesh mode, {name}: {missing} did not launch")
+    return launched
+
+
+def k9_route_capture(bam: str, bed: str, mesh, want: str) -> None:
+    """The route-coverage cell over ``mesh`` with K9's inputs recorded,
+    then K9 and its plain version timed on the largest pass it launched:
+    the kernel at the cell's own shapes."""
+    import torch
+
+    from otter_tpu_torch.kernels import edit_banded as K9
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+
+    passes = []
+    real = K9.edit_banded_ends_free
+
+    def record(ax, bxp, meta, k):
+        passes.append((ax.clone(), bxp.clone(), meta.clone(), k))
+        return real(ax, bxp, meta, k)
+
+    K9.edit_banded_ends_free = record
+    try:
+        got = run(bam, bed, TorchDistBackend(mesh=mesh))
+    finally:
+        K9.edit_banded_ends_free = real
+    check(got == want and passes, "route coverage: K9's capture run differs "
+          "from phase 5 or launched no K9")
+    sizes = [(int(p[0].shape[0]), p[3]) for p in passes]
+    ax, bxp, meta, k = max(passes, key=lambda p: int(p[2][:, 0].sum())
+                           * (p[3] + 1))
+    cells = float(int(meta[:, 0].sum()) * 2 * (k + 1))
+    ms = time_ms(lambda: K9.edit_banded_ends_free(ax, bxp, meta, k), 5)
+    plain_ms, want_k = time_once(
+        lambda: K9.edit_banded_ends_free_torch(ax, bxp, meta, k))
+    check(bool(torch.equal(K9.edit_banded_ends_free(ax, bxp, meta, k),
+                           want_k)),
+          "K9 disagrees with its plain version on the cell's pass")
+    b, by = bound("edit_banded_ends_free", cells,
+                  nbytes(ax, bxp, meta) + 4 * ax.shape[0])
+    log(f"  K9 in the route-coverage cell: {len(passes)} passes (jobs, k): "
+        f"{sizes}; its largest, {ax.shape[0]} jobs at k {k}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, == plain; bound {b:.5f} ms "
+        f"by {by}, {100 * b / ms:.2f}% of it")
+
+
+def mesh_entry_points(mesh, g64: dict, cmp: dict) -> dict:
+    """genotype64 and compare in mesh mode (``params.device = "mesh"`` when
+    ``mesh`` is None), byte-identical to phase 6's VCF and TSV; returns
+    the kernel launches of the compare run."""
+    import torch
+
+    from otter_tpu_torch.config import OtterOpts
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.models.compare import compare
+    from otter_tpu_torch.models.genotype import genotype
+
+    p = OtterOpts()
+    p.device = "mesh" if mesh is None else mesh[0].type
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    genotype(p, g64["bam"], g64["bed"], g64["fa"], out=out, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"  genotype64: wall {wall:.3f} s, VCF identical to phase 6: "
+        f"{out.getvalue() == g64['text']}")
+    check(out.getvalue() == g64["text"],
+          "mesh mode, genotype64: the VCF differs from phase 6's")
+    wrappers = cuda_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    backend = TorchDistBackend("mesh", mesh=mesh)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    compare(p, cmp["bed"], cmp["truth"], cmp["query"], out=out,
+            dist_backend=backend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in wrappers.items()}
+    shards = [{k: v for k, v in c.items() if v and k != "cells"}
+              for c in backend.engine.shard_counters()]
+    log(f"  compare: wall {wall:.3f} s, TSV identical to phase 6: "
+        f"{out.getvalue() == cmp['text']}; per shard {json.dumps(shards)}; "
+        f"launches {json.dumps({k: v for k, v in launched.items() if v})}")
+    check(out.getvalue() == cmp["text"] and launched["myers_pool"],
+          "mesh mode, compare: the TSV differs from phase 6's")
+    return launched
+
+
+def phase_mesh(dev, fixtures: list, runs: dict, g64: dict, cmp: dict
+               ) -> dict:
+    """Mesh mode on the mesh of every visible card (through
+    ``params.device = "mesh"``) and on two shards of card 0: every phase 5
+    cell, genotype64 and compare byte-identical to phases 5 and 6; K9
+    timed on the route-coverage cell's own largest pass. Returns K9's
+    launches in the mesh runs of the main path (its only path)."""
+    from otter_tpu_torch.parallel.mesh import make_mesh
+
+    log("== phase 8: mesh mode")
+    t0 = time.perf_counter()
+    k9 = 0
+    for label, mesh in (("all visible cards", None),
+                        ("two shards of card 0", (dev, dev))):
+        shown = make_mesh() if mesh is None else mesh
+        log(f"mesh {label}: {[str(d) for d in shown]}")
+        total = {}
+        for (name, _kw, _r), (bam, bed) in zip(CELLS, fixtures):
+            got = mesh_assemble(name, bam, bed, mesh, runs[name][1])
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        k9 += total["edit_banded_ends_free"]
+        if mesh is None:  # the user's path: assemble builds the mesh itself
+            name = CELLS[0][0]
+            t1 = time.perf_counter()
+            got = run(*fixtures[0], None, device="mesh")
+            log(f"  {name}, params.device = 'mesh' and no backend: wall "
+                f"{time.perf_counter() - t1:.3f} s, identical to phase 5: "
+                f"{got == runs[name][1]}")
+            check(got == runs[name][1], f"mesh mode, {name}: the user's "
+                  "path differs from phase 5's")
+        mesh_entry_points(mesh, g64, cmp)
+        missing = [k for k, v in total.items() if v == 0]
+        check(not missing, f"mesh {label}: kernels never launched on the "
+              f"main path: {missing}")
+    k9_route_capture(*fixtures[1], (dev, dev),
+                     runs["route coverage (parity only)"][1])
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    return {"edit_banded_ends_free": k9}
+
+
 def phase_profile(tmp: str) -> None:
     """Cell hifi-tr-1.5k three times untraced, then once under
     torch.profiler: wall, device busy time (the union of kernel and copy
@@ -1956,15 +2233,17 @@ def main() -> int:
             done("phase 3")
             phase_small(tmp)
             done("phase 4")
-            launches, (cell, hifi_text, _wall) = phase_full(tmp, fixtures,
-                                                            oracle)
+            launches, runs = phase_full(tmp, fixtures, oracle)
+            cell, hifi_text, _wall = runs["cell hifi-tr-1.5k"]
             done("phase 5")
             k2_small_launch(dev, cell["jobs_k2"])
             done("K2 at the cell's launch shape")
-            g64 = phase_entry_points(tmp)
+            g64, cmp = phase_entry_points(tmp)
             done("phase 6")
             phase_pools_processes(tmp, fixtures[0], hifi_text, g64)
             done("phase 7")
+            launches.update(phase_mesh(dev, fixtures, runs, g64, cmp))
+            done("phase 8")
         finally:
             if oracle.poll() is None:
                 oracle.kill()

@@ -57,6 +57,28 @@
 // chain of shuffles per row; the design hides it with several pairs per SM
 // (a launch holds up to K7_CHUNK = 1024 pairs, 256 blocks of 4 warps) rather
 // than with wider rows.
+//
+// Kernel K9: banded two-sided ends-free Levenshtein row DP over any byte
+// alphabet, the same kernels instantiated with kEndsFree = true.
+//
+// Replaces otter_tpu/kernels/edit_pallas.py::edit_banded_ends_free_jnp (jnp,
+// the fixed-k pass of the ends-free doubling ladder that the JAX package's
+// mesh mode shards over its devices, edit_pallas.py::_ends_free_mesh_runner).
+// The engine's mesh mode sends it the jobs with frees on both sides or a
+// non-ACGT character (ops/align_batch.py::edit_ends_free_batch's passes).
+//
+// Inputs, as the jnp function takes them: ax (B, Lp) int32 pattern codes
+// (padding -2), bxp (B, Lb) int32 text codes after k + 2 sentinel -1 columns
+// (Lb = k + 2 + Np + W + 2), and meta (B, 6) int32 = (m, n, pb, pe, tb, te).
+// Row i's window is bxp[i + w] (K7's bpad[i - 1 + w], one column on: the
+// kernels take the text row from its second column). What differs from K7:
+// row 0 is max(0, j - tb), the column j = 0 is max(0, i - pb), and `best`
+// is the minimum of the last column over rows m - i <= pe (the lane
+// wcol = n - i + k + 1, one lane left every row: each thread checks its own
+// lanes) and of the last row over j >= n - te; a warp (or the block) takes
+// the minimum of the threads' candidates at the end. INF = 2^24 when there
+// is none. Validity (best <= k - reach) is the caller's check, as in the jnp
+// function. Rows past m are not run: the jnp function keeps the row there.
 
 #include <cstdint>
 
@@ -76,30 +98,49 @@ __device__ __forceinline__ int load_or0(const int32_t* p, int len, int idx) {
 }
 
 // One warp per pair; thread `lane` keeps lanes [lane L, lane L + L).
-template <int L>
+// kEndsFree: K9 (meta rows of 6), else K7 (mn rows of 2). Lb: a text row's
+// length; K9's window starts one column on.
+template <int L, bool kEndsFree>
 __global__ void __launch_bounds__(32 * kWarps)
 edit_banded_warp_kernel(const int32_t* __restrict__ a,
                         const int32_t* __restrict__ bpad,
-                        const int32_t* __restrict__ mn, int La, int k,
+                        const int32_t* __restrict__ mn, int La, int Lb, int k,
                         int32_t* __restrict__ out, int n_pairs) {
+  constexpr int kMeta = kEndsFree ? 6 : 2;
+  constexpr int kOff = kEndsFree ? 1 : 0;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= n_pairs) return;  // the whole warp
   const int k1 = k + 1;
   const int W = 2 * k1;
-  const int Lb = La + W + 2;
-  const int m = min(mn[2 * b], La);
-  const int n = mn[2 * b + 1];
+  if (!kEndsFree) Lb = La + W + 2;  // K7's layout fixes its text rows
+  const int32_t* job = mn + static_cast<size_t>(b) * kMeta;
+  const int m = min(job[0], La);
+  const int n = job[1];
+  const int pb = kEndsFree ? job[2] : 0;
+  const int pe = kEndsFree ? job[3] : 0;
+  const int tb = kEndsFree ? job[4] : 0;
   const int32_t* arow = a + static_cast<size_t>(b) * La;
-  const int32_t* brow = bpad + static_cast<size_t>(b) * Lb;
+  const int32_t* brow = bpad + static_cast<size_t>(b) * Lb + kOff;
+  const int Lt = Lb - kOff;
   const int w0 = lane * L;
 
   int H[L], txt[L];
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     const int j0 = w0 + l - k1;
-    H[l] = (w0 + l < W && j0 >= 0 && j0 <= n) ? j0 : kInf;
-    txt[l] = load_or0(brow, Lb, w0 + l);  // row 1's window: bpad[w]
+    H[l] = (w0 + l < W && j0 >= 0 && j0 <= n)
+               ? (kEndsFree ? max(0, j0 - tb) : j0)
+               : kInf;
+    txt[l] = load_or0(brow, Lt, w0 + l);  // row 1's window
+  }
+  // K9: this thread's least end cell so far, row 0's last column first
+  int best = kInf;
+  if (kEndsFree && pe >= m && n + k1 < W) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (w0 + l == n + k1) best = H[l];
+    }
   }
   int aw = 0, nw = 0;
 #pragma unroll 1
@@ -107,7 +148,7 @@ edit_banded_warp_kernel(const int32_t* __restrict__ a,
     const int r = (i - 1) % kChunk;
     if (r == 0) {  // rows i .. i + 31: one char of each per lane
       aw = load_or0(arow, La, i - 1 + lane);
-      nw = load_or0(brow, Lb, i - 2 + 32 * L + lane);
+      nw = load_or0(brow, Lt, i - 2 + 32 * L + lane);
     }
     const int ac = __shfl_sync(kAll, aw, r);
     const int nc = __shfl_sync(kAll, nw, r);
@@ -132,7 +173,7 @@ edit_banded_warp_kernel(const int32_t* __restrict__ a,
       const int j = j0 + l;
       const int up = l + 1 < L ? H[l + 1] : up_next;
       int v = min(up + 1, H[l] + (txt[l] != ac ? 1 : 0));
-      if (j == 0) v = i;
+      if (j == 0) v = kEndsFree ? max(0, i - pb) : i;
       if (j < 0 || j > jhi) v = kInf;
       run = min(run, v - l);
       H[l] = run;
@@ -155,8 +196,31 @@ edit_banded_warp_kernel(const int32_t* __restrict__ a,
       const int j = j0 + l;
       H[l] = (j < 0 || j > jhi) ? kInf : min(pre, H[l]) + l;
     }
+    // K9: the last column (j = n) is lane n - i + k + 1 of row i
+    if (kEndsFree && m - i <= pe) {
+      const int wcol = n - i + k1;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        if (w0 + l == wcol && wcol < W) best = min(best, H[l]);
+      }
+    }
   }
 
+  if (kEndsFree) {
+    // the last row over j in [max(0, n - te), n], then the warp's minimum
+    const int jlo = max(0, n - job[5]);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int j = m + w0 + l - k1;
+      if (j >= jlo && j <= n) best = min(best, H[l]);
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      best = min(best, __shfl_xor_sync(kAll, best, d));
+    }
+    if (lane == 0) out[b] = best;
+    return;
+  }
   // the lane of column n after row m
   const int wt = n - m + k1;
   const bool valid = m - n <= k && n - m <= k;
@@ -174,13 +238,15 @@ edit_banded_warp_kernel(const int32_t* __restrict__ a,
 // One block per pair; thread t keeps lanes [t R, min(t R + R, W)) with
 // R = ceil(W / blockDim.x) of the row in `row` (shared memory, or the pair's
 // W int32 of device-memory scratch), and the warp totals of a row's scan in
-// shared memory after it.
+// shared memory after it. kEndsFree, Lb: as the warp kernel's.
+template <bool kEndsFree>
 __global__ void __launch_bounds__(1024)
 edit_banded_block_kernel(const int32_t* __restrict__ a,
                          const int32_t* __restrict__ bpad,
-                         const int32_t* __restrict__ mn, int La, int k,
-                         int32_t* __restrict__ out,
+                         const int32_t* __restrict__ mn, int La, int Lb,
+                         int k, int32_t* __restrict__ out,
                          int32_t* __restrict__ scratch) {
+  constexpr int kMeta = kEndsFree ? 6 : 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -188,21 +254,32 @@ edit_banded_block_kernel(const int32_t* __restrict__ a,
   const int b = blockIdx.x;
   const int k1 = k + 1;
   const int W = 2 * k1;
-  const int Lb = La + W + 2;
+  if (!kEndsFree) Lb = La + W + 2;  // K7's layout fixes its text rows
   const bool in_smem = W <= kSmemLanes;
   int32_t* row = in_smem ? reinterpret_cast<int32_t*>(smem_raw)
                          : scratch + static_cast<size_t>(b) * W;
   int32_t* wtot = reinterpret_cast<int32_t*>(smem_raw) + (in_smem ? W : 0);
-  const int m = min(mn[2 * b], La);
-  const int n = mn[2 * b + 1];
+  const int32_t* job = mn + static_cast<size_t>(b) * kMeta;
+  const int m = min(job[0], La);
+  const int n = job[1];
+  const int pb = kEndsFree ? job[2] : 0;
+  const int pe = kEndsFree ? job[3] : 0;
+  const int tb = kEndsFree ? job[4] : 0;
   const int32_t* arow = a + static_cast<size_t>(b) * La;
-  const int32_t* brow = bpad + static_cast<size_t>(b) * Lb;
+  const int32_t* brow = bpad + static_cast<size_t>(b) * Lb +
+                        (kEndsFree ? 1 : 0);
+  const int Lt = Lb - (kEndsFree ? 1 : 0);
   const int R = (W + blockDim.x - 1) / blockDim.x;
   const int w0 = min(t * R, W);
   const int w1 = min(w0 + R, W);
   for (int w = w0; w < w1; ++w) {
     const int j = w - k1;
-    row[w] = (j >= 0 && j <= n) ? j : kInf;
+    row[w] = (j >= 0 && j <= n) ? (kEndsFree ? max(0, j - tb) : j) : kInf;
+  }
+  // K9: this thread's least end cell so far (its own lanes only)
+  int best = kInf;
+  if (kEndsFree && pe >= m && n + k1 >= w0 && n + k1 < w1) {
+    best = row[n + k1];
   }
   __syncthreads();
 #pragma unroll 1
@@ -215,8 +292,10 @@ edit_banded_block_kernel(const int32_t* __restrict__ a,
     for (int w = w0; w < w1; ++w) {
       const int j = i + w - k1;
       const int up = w + 1 < w1 ? row[w + 1] : up_next;
-      int v = min(up + 1, row[w] + (btxt[w] != ac ? 1 : 0));
-      if (j == 0) v = i;
+      // K7's rows end inside its text row; K9's past m + k may not
+      const int bc = !kEndsFree || i - 1 + w < Lt ? btxt[w] : 0;
+      int v = min(up + 1, row[w] + (bc != ac ? 1 : 0));
+      if (j == 0) v = kEndsFree ? max(0, i - pb) : i;
       if (j < 0 || j > n) v = kInf;
       run = min(run, v - w);
       row[w] = run;
@@ -236,7 +315,33 @@ edit_banded_block_kernel(const int32_t* __restrict__ a,
       const int j = i + w - k1;
       row[w] = (j < 0 || j > n) ? kInf : min(pre, row[w]) + w;
     }
+    // K9: the last column is lane n - i + k + 1 of row i
+    const int wcol = n - i + k1;
+    if (kEndsFree && m - i <= pe && wcol >= w0 && wcol < w1) {
+      best = min(best, row[wcol]);
+    }
     __syncthreads();
+  }
+  if (kEndsFree) {
+    // the last row over j in [max(0, n - te), n], then the block's minimum
+    const int jlo = max(0, n - job[5]);
+    for (int w = w0; w < w1; ++w) {
+      const int j = m + w - k1;
+      if (j >= jlo && j <= n) best = min(best, row[w]);
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      best = min(best, __shfl_xor_sync(kAll, best, d));
+    }
+    if (lane == 0) wtot[warp] = best;
+    __syncthreads();
+    if (t == 0) {
+      for (int q = 1; q < static_cast<int>(blockDim.x + 31) / 32; ++q) {
+        best = min(best, wtot[q]);
+      }
+      out[b] = best;
+    }
+    return;
   }
   if (t == 0) {
     const bool valid = m - n <= k && n - m <= k;
@@ -244,51 +349,87 @@ edit_banded_block_kernel(const int32_t* __restrict__ a,
   }
 }
 
-template <int L>
+template <int L, bool kEndsFree>
 cudaError_t launch_warp(const int32_t* a, const int32_t* bpad,
-                        const int32_t* mn, int La, int k, int32_t* out,
-                        int n_pairs, cudaStream_t stream) {
+                        const int32_t* mn, int La, int Lb, int k,
+                        int32_t* out, int n_pairs, cudaStream_t stream) {
   const int blocks = (n_pairs + kWarps - 1) / kWarps;
-  edit_banded_warp_kernel<L><<<blocks, 32 * kWarps, 0, stream>>>(
-      a, bpad, mn, La, k, out, n_pairs);
+  edit_banded_warp_kernel<L, kEndsFree><<<blocks, 32 * kWarps, 0, stream>>>(
+      a, bpad, mn, La, Lb, k, out, n_pairs);
   return cudaGetLastError();
 }
 
+template <bool kEndsFree>
 cudaError_t launch_block(const int32_t* a, const int32_t* bpad,
-                         const int32_t* mn, int La, int k, int32_t* out,
-                         int n_pairs, int32_t* scratch, cudaStream_t stream) {
+                         const int32_t* mn, int La, int Lb, int k,
+                         int32_t* out, int n_pairs, int32_t* scratch,
+                         cudaStream_t stream) {
   const int W = 2 * (k + 1);
   const int threads = min(1024, (W / 8 + 31) / 32 * 32);
   const int smem = (W <= kSmemLanes ? 4 * W : 0) + 4 * 32;
   if (W > kSmemLanes && scratch == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      edit_banded_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      edit_banded_block_kernel<kEndsFree>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  edit_banded_block_kernel<<<n_pairs, threads, smem, stream>>>(
-      a, bpad, mn, La, k, out, scratch);
+  edit_banded_block_kernel<kEndsFree><<<n_pairs, threads, smem, stream>>>(
+      a, bpad, mn, La, Lb, k, out, scratch);
   return cudaGetLastError();
+}
+
+// The warp kernel at the fewest lanes a thread that hold the band, or the
+// block kernel past 32 (k > 511).
+template <bool kEndsFree>
+int launch(const int32_t* a, const int32_t* bpad, const int32_t* mn, int La,
+           int Lb, int k, int32_t* out, int n_pairs, void* scratch,
+           void* stream) {
+  if (k < 0 || La < 0 || Lb < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_pairs <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int lanes = (2 * (k + 1) + 31) / 32;  // a thread's lanes in a warp
+  constexpr bool E = kEndsFree;
+  if (lanes <= 1) return launch_warp<1, E>(a, bpad, mn, La, Lb, k, out,
+                                           n_pairs, s);
+  if (lanes <= 2) return launch_warp<2, E>(a, bpad, mn, La, Lb, k, out,
+                                           n_pairs, s);
+  if (lanes <= 4) return launch_warp<4, E>(a, bpad, mn, La, Lb, k, out,
+                                           n_pairs, s);
+  if (lanes <= 8) return launch_warp<8, E>(a, bpad, mn, La, Lb, k, out,
+                                           n_pairs, s);
+  if (lanes <= 12) return launch_warp<12, E>(a, bpad, mn, La, Lb, k, out,
+                                             n_pairs, s);
+  if (lanes <= 16) return launch_warp<16, E>(a, bpad, mn, La, Lb, k, out,
+                                             n_pairs, s);
+  if (lanes <= 24) return launch_warp<24, E>(a, bpad, mn, La, Lb, k, out,
+                                             n_pairs, s);
+  if (lanes <= 32) return launch_warp<32, E>(a, bpad, mn, La, Lb, k, out,
+                                             n_pairs, s);
+  return launch_block<E>(a, bpad, mn, La, Lb, k, out, n_pairs,
+                         static_cast<int32_t*>(scratch), s);
 }
 
 }  // namespace
 
-// k >= 0. scratch holds 2 (k + 1) * n_pairs int32 when 2 (k + 1) > 32768
-// (allocated by the caller); it is not read otherwise and may be null.
+// K7. k >= 0. scratch holds 2 (k + 1) * n_pairs int32 when
+// 2 (k + 1) > 32768 (allocated by the caller); it is not read otherwise and
+// may be null.
 extern "C" int otter_edit_banded(const int32_t* a, const int32_t* bpad,
                                  const int32_t* mn, int L, int k, int32_t* out,
                                  int n_pairs, void* scratch, void* stream) {
-  if (k < 0 || L < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pairs <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int lanes = (2 * (k + 1) + 31) / 32;  // a thread's lanes in a warp
-  if (lanes <= 1) return launch_warp<1>(a, bpad, mn, L, k, out, n_pairs, s);
-  if (lanes <= 2) return launch_warp<2>(a, bpad, mn, L, k, out, n_pairs, s);
-  if (lanes <= 4) return launch_warp<4>(a, bpad, mn, L, k, out, n_pairs, s);
-  if (lanes <= 8) return launch_warp<8>(a, bpad, mn, L, k, out, n_pairs, s);
-  if (lanes <= 12) return launch_warp<12>(a, bpad, mn, L, k, out, n_pairs, s);
-  if (lanes <= 16) return launch_warp<16>(a, bpad, mn, L, k, out, n_pairs, s);
-  if (lanes <= 24) return launch_warp<24>(a, bpad, mn, L, k, out, n_pairs, s);
-  if (lanes <= 32) return launch_warp<32>(a, bpad, mn, L, k, out, n_pairs, s);
-  return launch_block(a, bpad, mn, L, k, out, n_pairs,
-                      static_cast<int32_t*>(scratch), s);
+  return launch<false>(a, bpad, mn, L, L + 2 * (k + 1) + 2, k, out, n_pairs,
+                       scratch, stream);
+}
+
+// K9: ax (n_jobs, Lp), bxp (n_jobs, Lb), meta (n_jobs, 6); every read of
+// bxp is bounded by Lb (the jnp layout's Lb = k + 2 + Np + W + 2 holds every
+// window of a row i <= min(m, n + k + 1)); scratch as K7's.
+extern "C" int otter_edit_banded_ends_free(const int32_t* ax,
+                                           const int32_t* bxp,
+                                           const int32_t* meta, int Lp,
+                                           int Lb, int k, int32_t* out,
+                                           int n_jobs, void* scratch,
+                                           void* stream) {
+  return launch<true>(ax, bxp, meta, Lp, Lb, k, out, n_jobs, scratch, stream);
 }

@@ -73,6 +73,7 @@
 // would change a bit: m and every exp(e - m) are the plain version's bit
 // for bit (e - m itself may differ in the sign of a zero, see term).
 
+#include <atomic>
 #include <cstdint>
 #include <math.h>
 
@@ -385,16 +386,25 @@ kde_scaled_kernel(const float* __restrict__ vals, int n_pad,
   }
 }
 
+// The SM count of the calling thread's current device (the card the launch
+// goes to), read once a device index and cached; a thread that races
+// another on a first read stores the same value. An index past the cache
+// is read every time; a failed read gives the H100's 132.
 int sm_count() {
-  static int sms = 0;
-  if (sms <= 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || sms <= 0) {
-      sms = 132;
-    }
+  constexpr int kCachedDevices = 64;
+  static std::atomic<int> cached[kCachedDevices];  // 0: not read yet
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 132;
+  if (dev < kCachedDevices) {
+    const int sms = cached[dev].load(std::memory_order_relaxed);
+    if (sms > 0) return sms;
   }
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms <= 0) {
+    return 132;
+  }
+  if (dev < kCachedDevices) cached[dev].store(sms, std::memory_order_relaxed);
   return sms;
 }
 

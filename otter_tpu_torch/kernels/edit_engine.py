@@ -20,8 +20,10 @@ Ends-free routing: jobs without frees take the distance path; one-sided
 ACGT jobs (both sides non-empty, <= 32 kb) -> K2, or the K4 ladder
 (``myers_banded_ef``) first when the free-less side is over 2048; the rest
 (frees on both sides, non-ACGT) -> the host DP
-``ops.align_batch.edit_ends_free_batch``, as the JAX package does. Every
-route is exact.
+``ops.align_batch.edit_ends_free_batch``, as the JAX package does; over a
+mesh (``MeshEngine``) that DP's fixed-k passes run on kernel K9
+(``edit_banded.edit_banded_ends_free``), as the JAX package's mesh mode
+runs them in jnp. Every route is exact.
 
 The ``*_async`` calls launch K1 and the short K2 jobs on the current stream
 and return; the ``*_collect`` calls copy those results back and run the
@@ -47,6 +49,10 @@ from .myers_striped import (dedup_oriented, myers_striped,
 
 # shorter-side thresholds of the K1 n_words buckets 4, 8, 16, 32 (64 above)
 _NW_THRESHOLDS = np.asarray([128, 256, 512, 1024], dtype=np.int64)
+
+COUNTERS = ("pairs_k1", "pairs_k3", "pairs_k2", "pairs_k7", "jobs_k2",
+            "jobs_k4", "jobs_host", "jobs_k9", "jobs_k5", "jobs_affine_host",
+            "cells")
 
 
 class IndexedPairs:
@@ -123,6 +129,7 @@ class EditDistanceEngine:
         self.jobs_k2 = 0
         self.jobs_k4 = 0      # resolved by a K4 rung
         self.jobs_host = 0
+        self.jobs_k9 = 0      # resolved by a K9 pass (mesh mode only)
         self.jobs_k5 = 0      # consensus cigars from K5
         self.jobs_affine_host = 0   # consensus cigars K5 left to the ladder
 
@@ -130,9 +137,7 @@ class EditDistanceEngine:
         return int32_tensor(a, self.device)
 
     def counters(self) -> dict:
-        return {k: getattr(self, k) for k in (
-            "pairs_k1", "pairs_k3", "pairs_k2", "pairs_k7", "jobs_k2",
-            "jobs_k4", "jobs_host", "jobs_k5", "jobs_affine_host", "cells")}
+        return {k: getattr(self, k) for k in COUNTERS}
 
     # -- distances -----------------------------------------------------------
 
@@ -163,10 +168,11 @@ class EditDistanceEngine:
         pool = self._int32(pack_pool([pv.seqs[s] for s in uniq], width))
         return pool, inv[: len(idx)], inv[len(idx):], m, n
 
-    def distances_async_indexed(self, seqs: List[str], xi, yi):
-        """Route pair p = (seqs[xi[p]], seqs[yi[p]]) and launch its K1
-        buckets; returns a handle for ``distances_collect``."""
-        pv = IndexedPairs(seqs, xi, yi)
+    def route_pairs(self, pv: IndexedPairs):
+        """(out, k1, long, rest): the results of the pairs no kernel needs
+        (equal objects, an empty side) filled in ``out``, and the indices of
+        the K1 pairs, the long ACGT pairs (K3 ladder, then K2) and the rest
+        (K7 ladder)."""
         lx = pv.lens[pv.xi]
         ly = pv.lens[pv.yi]
         mn = np.minimum(lx, ly)
@@ -175,16 +181,26 @@ class EditDistanceEngine:
         empty = (lx == 0) | (ly == 0)
         out[empty] = mx[empty]
         todo = ~((pv.xi == pv.yi) | empty)
-        acgt = acgt_flags(seqs)
+        acgt = acgt_flags(pv.seqs)
         elig = todo & acgt[pv.xi] & acgt[pv.yi] & (mx <= self.MYERS_TEXT_CAP)
-        rest = np.nonzero(todo & ~elig)[0]
         base = elig & (mn <= self.MYERS_MAX_WORDS * 32)
-        long_idx = np.nonzero(elig & ~base)[0]
+        return (out, np.nonzero(base)[0], np.nonzero(elig & ~base)[0],
+                np.nonzero(todo & ~elig)[0])
+
+    @staticmethod
+    def k1_buckets(pv: IndexedPairs, idx: np.ndarray) -> np.ndarray:
+        """The K1 n_words bucket (0-4: 4, 8, 16, 32, 64 words) of pairs
+        ``idx``, by their shorter side."""
+        m = np.minimum(pv.lens[pv.xi[idx]], pv.lens[pv.yi[idx]])
+        return np.searchsorted(_NW_THRESHOLDS, m, side="left")
+
+    def launch_k1(self, pv: IndexedPairs, bidx: np.ndarray) -> list:
+        """One K1 launch per n_words bucket of pairs ``bidx``; returns the
+        pending (pair indices, device result) list."""
         pending = []
-        bidx = np.nonzero(base)[0]
         if len(bidx):
             pool, ip, it, m, n = self._pool_inputs(pv, bidx)
-            nwi = np.searchsorted(_NW_THRESHOLDS, m, side="left")
+            nwi = self.k1_buckets(pv, bidx)
             for g in np.unique(nwi):
                 sel = nwi == g
                 dev = myers_pool(pool, self._int32(ip[sel]),
@@ -194,22 +210,39 @@ class EditDistanceEngine:
                 pending.append((bidx[sel], dev))
                 self.pairs_k1 += int(sel.sum())
                 self.cells += int((m[sel] * n[sel]).sum())
-        return pv, pending, long_idx, rest, out
+        return pending
 
-    def distances_collect(self, handle) -> np.ndarray:
-        """Finish a ``distances_async*`` handle: one device-to-host copy of
-        the K1 results, then the K3/K2 and K7 ladders."""
-        pv, pending, long_idx, rest, out = handle
+    def distances_async_indexed(self, seqs: List[str], xi, yi):
+        """Route pair p = (seqs[xi[p]], seqs[yi[p]]) and launch its K1
+        buckets; returns a handle for ``distances_collect``."""
+        pv = IndexedPairs(seqs, xi, yi)
+        out, bidx, long_idx, rest = self.route_pairs(pv)
+        return pv, self.launch_k1(pv, bidx), long_idx, rest, out
+
+    @staticmethod
+    def collect_k1(pending: list, out: np.ndarray) -> None:
+        """One device-to-host copy of a ``launch_k1`` list into ``out``."""
         if pending:
             flat = torch.cat([dev for _m, dev in pending]).cpu().numpy()
             offset = 0
             for members, _dev in pending:
                 out[members] = flat[offset : offset + len(members)]
                 offset += len(members)
+
+    def collect_ladders(self, pv: IndexedPairs, long_idx: np.ndarray,
+                        rest: np.ndarray, out: np.ndarray) -> None:
+        """The K3/K2 and K7 ladders of ``long_idx`` and ``rest``."""
         if len(long_idx):
             self._long_pair_route(pv, long_idx, out)
         if len(rest):
             self._banded_ladder(pv, rest, out)
+
+    def distances_collect(self, handle) -> np.ndarray:
+        """Finish a ``distances_async*`` handle: one device-to-host copy of
+        the K1 results, then the K3/K2 and K7 ladders."""
+        pv, pending, long_idx, rest, out = handle
+        self.collect_k1(pending, out)
+        self.collect_ladders(pv, long_idx, rest, out)
         return out
 
     def _long_pair_route(self, pv: IndexedPairs, idx: np.ndarray,
@@ -277,10 +310,10 @@ class EditDistanceEngine:
     def ends_free(self, jobs) -> np.ndarray:
         return self.ends_free_collect(self.ends_free_async(jobs))
 
-    def ends_free_async(self, jobs):
-        """Route ends-free jobs (pattern, text, pb, pe, tb, te) and launch
-        the short K2 ones; returns a handle for ``ends_free_collect``."""
-        out = np.zeros(len(jobs), dtype=np.int64)
+    def route_ends_free(self, jobs):
+        """(k2, k4, host, zero): the indices of the ends-free jobs for K2,
+        for the K4 ladder, for the host DP and with no frees (the distance
+        path); jobs whose sides are equal need nothing (0)."""
         acgt: dict = {}
 
         def is_acgt(s: str) -> bool:
@@ -309,12 +342,23 @@ class EditDistanceEngine:
                     k2.append(idx)
             else:
                 host.append(idx)
-        k2h = None
-        if k2:
-            sub = [jobs[i] for i in k2]
-            k2h = myers_striped_ends_free_async(sub, self.device)
-            self.jobs_k2 += len(k2)
-            self.cells += sum(len(j[0]) * len(j[1]) for j in sub)
+        return k2, k4, host, zero_idx
+
+    def launch_k2_ends_free(self, jobs, k2: List[int]):
+        """Launch the K2 jobs ``k2``; the handle, or None for none."""
+        if not k2:
+            return None
+        sub = [jobs[i] for i in k2]
+        self.jobs_k2 += len(k2)
+        self.cells += sum(len(j[0]) * len(j[1]) for j in sub)
+        return myers_striped_ends_free_async(sub, self.device)
+
+    def ends_free_async(self, jobs):
+        """Route ends-free jobs (pattern, text, pb, pe, tb, te) and launch
+        the short K2 ones; returns a handle for ``ends_free_collect``."""
+        out = np.zeros(len(jobs), dtype=np.int64)
+        k2, k4, host, zero_idx = self.route_ends_free(jobs)
+        k2h = self.launch_k2_ends_free(jobs, k2)
         self.jobs_host += len(host)
         zh = (self.distances_async([jobs[i][:2] for i in zero_idx])
               if zero_idx else None)
@@ -381,3 +425,155 @@ class EditDistanceEngine:
             out[idx[seln]] = d
             self.jobs_k2 += len(seln)
             self.cells += int((m[seln] * n[seln]).sum())
+
+
+class MeshEngine:
+    """The engine's surface over a mesh (``parallel/mesh.py``): one
+    ``EditDistanceEngine`` a shard, the counterpart of the JAX package's
+    ``EditDistanceEngine(mode="jnp", mesh=...)`` (``device="mesh"``).
+
+    Pairs and jobs are routed once, as on one device; then each route's
+    batch is split over the shards in contiguous blocks (each K1 n_words
+    bucket, the long pairs, the K7 pairs, the K2 and K4 jobs), so every
+    shard runs the same kernels as ``device="cuda"`` on its share. The JAX
+    mesh mode sends every pair through ``edit_banded_jnp`` instead, a
+    constraint of sharding under pjit; the distances are the same
+    integers either way. Every shard's K1 and K2 launches are made before
+    any result is read; each shard's ladders then read their own rungs.
+    The host bucket of the ends-free jobs (frees on both sides, or a
+    non-ACGT character) goes to ``edit_ends_free_batch`` with a runner that
+    splits each fixed-k pass over the shards and runs kernel K9 on each
+    (the JAX package's ``_ends_free_mesh_runner``); a job whose band reaches
+    its text stays on the host DP there, as in both packages.
+
+    ``device`` is the mesh's first device, where the consensus cigars (K5,
+    K6) run: the JAX mesh mode shards no cigar work either. ``counters()``
+    sums the shards'; ``shard_counters()`` gives each shard's."""
+
+    def __init__(self, mesh):
+        from ..parallel.mesh import make_mesh
+
+        self.mesh = make_mesh(devices=mesh)
+        self.engines = [EditDistanceEngine(d) for d in self.mesh]
+        self.device = self.mesh[0]
+        self.mode = self.engines[0].mode
+        self.jobs_host = 0
+        self.jobs_k5 = 0
+        self.jobs_affine_host = 0
+
+    def counters(self) -> dict:
+        out = dict.fromkeys(COUNTERS, 0)
+        for eng in self.engines:
+            for k, v in eng.counters().items():
+                out[k] += v
+        for k in ("jobs_host", "jobs_k5", "jobs_affine_host"):
+            out[k] += getattr(self, k)
+        return out
+
+    def shard_counters(self) -> list:
+        return [eng.counters() for eng in self.engines]
+
+    def _split(self, idx) -> list:
+        """``idx`` cut into one contiguous block a shard."""
+        from ..parallel.mesh import shard_rows
+
+        return [idx[lo:hi] for lo, hi in shard_rows(len(idx), self.mesh)]
+
+    # -- distances -----------------------------------------------------------
+
+    def distances(self, pairs: Sequence[Tuple[str, str]]) -> np.ndarray:
+        return self.distances_collect(self.distances_async(pairs))
+
+    def distances_async(self, pairs: Sequence[Tuple[str, str]]):
+        seqs, xi, yi = dedup_oriented(pairs)
+        return self.distances_async_indexed(seqs, xi, yi)
+
+    def distances_async_indexed(self, seqs: List[str], xi, yi):
+        """Route the pairs, split each K1 bucket, the long pairs and the
+        K7 pairs over the shards, and launch every shard's K1."""
+        pv = IndexedPairs(seqs, xi, yi)
+        out, bidx, long_idx, rest = self.engines[0].route_pairs(pv)
+        nwi = EditDistanceEngine.k1_buckets(pv, bidx)
+        k1 = [[] for _ in self.engines]
+        for g in np.unique(nwi):
+            for s, part in enumerate(self._split(bidx[nwi == g])):
+                k1[s].append(part)
+        shards = []
+        for eng, parts, lp, rp in zip(self.engines, k1,
+                                      self._split(long_idx),
+                                      self._split(rest)):
+            idx = (np.concatenate(parts) if parts
+                   else np.zeros(0, dtype=np.int64))
+            shards.append((eng, eng.launch_k1(pv, idx), lp, rp))
+        return pv, shards, out
+
+    def distances_collect(self, handle) -> np.ndarray:
+        """Every shard's K1 results (one copy a shard), then each shard's
+        ladders."""
+        pv, shards, out = handle
+        for eng, pending, _lp, _rp in shards:
+            eng.collect_k1(pending, out)
+        for eng, _pending, lp, rp in shards:
+            eng.collect_ladders(pv, lp, rp, out)
+        return out
+
+    # -- ends-free -----------------------------------------------------------
+
+    def ends_free(self, jobs) -> np.ndarray:
+        return self.ends_free_collect(self.ends_free_async(jobs))
+
+    def ends_free_async(self, jobs):
+        """Route the jobs once, split the K2 and K4 jobs over the shards
+        and launch every shard's K2."""
+        out = np.zeros(len(jobs), dtype=np.int64)
+        k2, k4, host, zero_idx = self.engines[0].route_ends_free(jobs)
+        shards = [(eng, k2s, eng.launch_k2_ends_free(jobs, k2s), k4s)
+                  for eng, k2s, k4s in zip(self.engines, self._split(k2),
+                                           self._split(k4))]
+        zh = (self.distances_async([jobs[i][:2] for i in zero_idx])
+              if zero_idx else None)
+        return jobs, out, shards, host, zero_idx, zh
+
+    def ends_free_collect(self, handle) -> np.ndarray:
+        from ..ops.align_batch import edit_ends_free_batch
+
+        jobs, out, shards, host, zero_idx, zh = handle
+        for _eng, k2s, k2h, _k4s in shards:
+            if k2h is not None:
+                out[k2s] = myers_striped_ends_free_collect(k2h)
+        for eng, _k2s, _k2h, k4s in shards:
+            if k4s:
+                eng._ends_free_banded_route(jobs, np.asarray(k4s), out)
+        if zh is not None:
+            out[zero_idx] = self.distances_collect(zh)
+        if host:
+            self.jobs_host += len(host)  # less the jobs K9 resolves
+            out[host] = edit_ends_free_batch([jobs[i] for i in host],
+                                             banded_runner=self._k9_runner)
+        return out
+
+    def _k9_runner(self, jobs, members, k: int) -> np.ndarray:
+        """``edit_ends_free_batch``'s fixed-k pass: ``members`` split over
+        the shards, K9 launched on each before any result is read. Each
+        shard counts the jobs its pass resolves (best <= k - reach, the
+        check the caller makes) as K9's, not the host DP's."""
+        from .edit_banded import edit_banded_ends_free, pack_ends_free
+
+        launched = []
+        for eng, part in zip(self.engines, self._split(list(members))):
+            if part:
+                ax, bxp, meta = (eng._int32(x)
+                                 for x in pack_ends_free(jobs, part, k))
+                launched.append((eng, part,
+                                 edit_banded_ends_free(ax, bxp, meta, k)))
+        best = []
+        for eng, part, dev in launched:
+            got = dev.cpu().numpy().astype(np.int64)
+            reach = np.fromiter(
+                (max(abs(len(jobs[i][1]) - len(jobs[i][0])), *jobs[i][2:6])
+                 for i in part), np.int64, len(part))
+            resolved = int((got <= k - reach).sum())
+            eng.jobs_k9 += resolved
+            self.jobs_host -= resolved
+            best.append(got)
+        return np.concatenate(best)

@@ -51,7 +51,7 @@ from ..utils.timestamp import antimestamp
 from ..kernels.dist_backend import TorchDistBackend
 from ..kernels.edit_engine import IndexedPairs
 
-DEVICES = ("cuda", "cpu")
+DEVICES = ("cuda", "cpu", "mesh")
 
 DEFAULT_REGION_BATCH = int(os.environ.get("OTTER_TPU_REGION_BATCH", "256"))
 
@@ -299,8 +299,9 @@ DEVICE_KDE_MIN_EVALS = 2_000_000
 def _use_device_kde(engine, kde_regions) -> bool:
     """Route the batch's KDE to K8? OTTER_TPU_MESH_KDE=1 forces it (the
     plain version on a CPU engine), =0 keeps the host float64 KDE; by
-    default an engine on the card takes it once the pooled evaluation
-    count reaches DEVICE_KDE_MIN_EVALS, as the JAX package routes."""
+    default an engine on the card (or on a mesh of cards) takes it once
+    the pooled evaluation count reaches DEVICE_KDE_MIN_EVALS, as the JAX
+    package routes."""
     env = os.environ.get("OTTER_TPU_MESH_KDE", "")
     if env in ("0", "1"):
         return env == "1"
@@ -321,9 +322,10 @@ def _device_kde(params: OtterOpts, engine, kde_regions) -> dict:
 
     values = [v for _si, v, _b in kde_regions]
     bws = [b for _si, _v, b in kde_regions]
-    device = getattr(engine, "device", None) or "cpu"
+    devices = (getattr(engine, "mesh", None)
+               or getattr(engine, "device", None) or "cpu")
     with metrics.phase("device_dispatch"), metrics.phase("kde_device"):
-        scaled = pooled_kde_scaled(values, bws, device)
+        scaled = pooled_kde_scaled(values, bws, devices)
     region_dens: dict = {}
     fallback = []
     with metrics.phase("cluster_consensus"):
@@ -506,7 +508,8 @@ def _assemble_batched(params: OtterOpts, bed_regions: List[BED],
 def _make_dist_backend(params: OtterOpts,
                        process_index: int = 0) -> TorchDistBackend:
     """The engine for ``params.device`` (for ``cuda``, the card this
-    process binds to, ``parallel/distributed.py::bind_device``); raises if
+    process binds to, ``parallel/distributed.py::bind_device``; for
+    ``mesh``, the mesh engine over the process's visible cards); raises if
     that device is absent."""
     from ..parallel.distributed import bind_device
 

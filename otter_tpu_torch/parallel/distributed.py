@@ -164,15 +164,24 @@ def bind_device(device: str, process_index: int) -> str:
     """The device this process runs on. For ``cuda``: card ``LOCAL_RANK``
     (else the process index) modulo the card count, made the process's
     current device, since the kernels' launchers launch on the current
-    device; every process shares the card where there is one. Raises for
-    ``cuda`` without a card. Other devices come back unchanged."""
-    if device != "cuda":
+    device; every process shares the card where there is one. For
+    ``mesh``: the process's mesh is its visible cards, capped by
+    ``OTTER_TPU_MESH_DEVICES`` (``parallel/mesh.py::make_mesh``), and its
+    current device the mesh's first card; processes on one host split the
+    cards with ``CUDA_VISIBLE_DEVICES``. Raises for ``cuda`` and ``mesh``
+    without a card. Other devices come back unchanged."""
+    if device not in ("cuda", "mesh"):
         return device
     import torch
 
     if not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but "
+        raise RuntimeError(f"device {device!r} requested but "
                            "torch.cuda.is_available() is false")
+    if device == "mesh":
+        from .mesh import make_mesh
+
+        torch.cuda.set_device(make_mesh()[0])
+        return device
     local = int(os.environ.get("LOCAL_RANK", process_index))
     index = local % torch.cuda.device_count()
     torch.cuda.set_device(index)

@@ -1,12 +1,26 @@
-"""Pooled device KDE of many regions (counterpart of the JAX package's
-``otter_tpu/parallel/mesh.py::pooled_kde_scaled``).
+"""The in-process device mesh, and the pooled device KDE over it.
 
-One process, one device: the mesh, the pair-batch sharding and the sharded
-region step of the JAX module are not ported (ROADMAP queue 1 items 12 and
-14).
+Counterpart of the JAX package's ``otter_tpu/parallel/mesh.py``
+(``make_mesh``, ``shard_pair_batch``, ``pooled_kde_scaled``). A mesh here
+is an ordered tuple of ``torch.device``s: ``make_mesh`` gives the visible
+cards, capped by ``OTTER_TPU_MESH_DEVICES`` as the JAX package caps its
+local devices, and a caller may pass any devices instead (the tests' CPU
+meshes ``(cpu,) * N``, whose shards run the kernels' plain versions in
+turn; one card split in two shards, ``(cuda:0, cuda:0)``). Work is split
+into contiguous row blocks, one a shard (``shard_rows``); torch has no
+sharding constraint, so nothing is padded and an empty shard launches
+nothing. Each shard's kernels launch on its own device, every shard is
+launched before any result is read back, and results come back in the
+input order.
+
+Several processes on one host split the cards with
+``CUDA_VISIBLE_DEVICES``: each process's mesh is the cards it sees.
 """
 
 from __future__ import annotations
+
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -14,17 +28,67 @@ import torch
 from ..kernels.kde_scaled import kde_scaled
 from ..ops.kde import kde_grid
 
+Mesh = Tuple[torch.device, ...]
 
-def pooled_kde_scaled(value_lists, bandwidths, device,
+
+def make_mesh(n_devices: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """The mesh of ``devices`` (as given), or of the first ``n_devices``
+    visible cards (default ``OTTER_TPU_MESH_DEVICES``; 0 or unset means
+    all). Raises when no card is visible and no devices are given: a mesh
+    never becomes a CPU run unless the caller asks for one."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("device 'mesh' requested but "
+                               "torch.cuda.is_available() is false")
+        if n_devices is None:
+            n_devices = int(os.environ.get("OTTER_TPU_MESH_DEVICES", "0")
+                            or 0)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    mesh = tuple(torch.device(d) for d in devices)
+    if n_devices:
+        mesh = mesh[:n_devices]
+    if not mesh:
+        raise ValueError("a mesh needs at least one device")
+    return mesh
+
+
+def as_mesh(devices) -> Mesh:
+    """``devices`` as a mesh: one device (a name or a ``torch.device``) is
+    a mesh of one."""
+    if isinstance(devices, (str, torch.device)):
+        return (torch.device(devices),)
+    return tuple(torch.device(d) for d in devices)
+
+
+def shard_rows(n: int, mesh: Sequence) -> List[Tuple[int, int]]:
+    """Contiguous row blocks [lo, hi) of ``n`` rows, one a shard of
+    ``mesh`` in order, sizes differing by at most one (the first shards
+    take the remainder); a shard past ``n`` gets an empty block."""
+    shards = len(mesh)
+    base, extra = divmod(n, shards)
+    out = []
+    lo = 0
+    for s in range(shards):
+        hi = lo + base + (1 if s < extra else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def pooled_kde_scaled(value_lists, bandwidths, devices,
                       dinterval: float = 0.0025) -> list:
-    """Scaled tree-reduction KDE (kernel K8 on a CUDA ``device``, its plain
+    """Scaled tree-reduction KDE (kernel K8 on CUDA devices, its plain
     version on the CPU) over many regions, bucketed by padded value count
-    (n_pad, a power of two >= max(8, n)) as the JAX function does, with ONE
-    device-to-host copy for every bucket. Returns per-region (m, s) float32
-    array pairs."""
-    dev = torch.device(device)
-    xs = torch.from_numpy(kde_grid(dinterval).astype(np.float32)).to(dev)
-    G = xs.shape[0]
+    (n_pad, a power of two >= max(8, n)) as the JAX function does. Each
+    bucket's regions are split over ``devices`` (a mesh, or one device),
+    every shard launched before any is read, then ONE device-to-host copy
+    a device. Returns per-region (m, s) float32 array pairs."""
+    mesh = as_mesh(devices)
+    xs32 = torch.from_numpy(kde_grid(dinterval).astype(np.float32))
+    G = xs32.shape[0]
+    xs = {d: xs32.to(d) for d in set(mesh)}
     out = [None] * len(value_lists)
     buckets: dict = {}
     for i, v in enumerate(value_lists):
@@ -32,27 +96,31 @@ def pooled_kde_scaled(value_lists, bandwidths, device,
         while n_pad < len(v):
             n_pad *= 2
         buckets.setdefault(n_pad, []).append(i)
-    chunks = []  # device (R, 2G) blocks, one per bucket
-    spans = []
+    chunks: dict = {d: [] for d in mesh}  # device (R, 2G) blocks
+    spans: dict = {d: [] for d in mesh}   # their regions, in block order
     for n_pad, idxs in sorted(buckets.items()):
-        V = np.zeros((len(idxs), n_pad), dtype=np.float32)
-        nv = np.ones(len(idxs), dtype=np.int32)
-        bwv = np.full(len(idxs), 0.01, dtype=np.float32)
-        for r, i in enumerate(idxs):
-            v = np.asarray(value_lists[i], dtype=np.float32)
-            V[r, : len(v)] = v
-            nv[r] = len(v)
-            bwv[r] = bandwidths[i]
-        m, s = kde_scaled(torch.from_numpy(V).to(dev),
-                          torch.from_numpy(nv).to(dev),
-                          torch.from_numpy(bwv).to(dev), xs,
-                          n_max=int(nv.max()))
-        chunks.append(torch.cat([m, s], dim=1))
-        spans.append(idxs)
-    flat = torch.cat(chunks).cpu().numpy() if chunks else None
-    row = 0
-    for idxs in spans:
-        for i in idxs:
+        for dev, (lo, hi) in zip(mesh, shard_rows(len(idxs), mesh)):
+            if lo == hi:
+                continue
+            part = idxs[lo:hi]
+            V = np.zeros((len(part), n_pad), dtype=np.float32)
+            nv = np.ones(len(part), dtype=np.int32)
+            bwv = np.full(len(part), 0.01, dtype=np.float32)
+            for r, i in enumerate(part):
+                v = np.asarray(value_lists[i], dtype=np.float32)
+                V[r, : len(v)] = v
+                nv[r] = len(v)
+                bwv[r] = bandwidths[i]
+            m, s = kde_scaled(torch.from_numpy(V).to(dev),
+                              torch.from_numpy(nv).to(dev),
+                              torch.from_numpy(bwv).to(dev), xs[dev],
+                              n_max=int(nv.max()))
+            chunks[dev].append(torch.cat([m, s], dim=1))
+            spans[dev].extend(part)
+    for dev, blocks in chunks.items():
+        if not blocks:
+            continue
+        flat = torch.cat(blocks).cpu().numpy()
+        for row, i in enumerate(spans[dev]):
             out[i] = (flat[row, :G], flat[row, G:])
-            row += 1
     return out

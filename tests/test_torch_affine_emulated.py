@@ -54,15 +54,29 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 }
 inline cudaError_t cudaGetLastError() { return 0; }
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+namespace emu {
+// the calling thread's current device, and the SM count of each of two
+// devices: an H100's 132 and a smaller card's 66
+inline thread_local int device = 0;
+inline const int device_sms[2] = {132, 66};
+}  // namespace emu
 inline cudaError_t cudaGetDevice(int* dev) {
-  *dev = 0;
+  *dev = emu::device;
   return 0;
 }
-// the H100's 132 SMs
-inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
-  *value = 132;
+inline cudaError_t cudaSetDevice(int dev) {
+  if (dev < 0 || dev > 1) return cudaErrorInvalidValue;
+  emu::device = dev;
   return 0;
 }
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr,
+                                          int dev) {
+  if (dev < 0 || dev > 1) return cudaErrorInvalidValue;
+  *value = emu::device_sms[dev];
+  return 0;
+}
+// the host's handle on the calling thread's device
+extern "C" int emu_set_device(int dev) { return cudaSetDevice(dev); }
 
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
@@ -199,9 +213,9 @@ def build_emulated(tmp_path_factory, source: str,
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     with open(source) as fh:
         src = fh.read()
-    # kernel<L><<<grid, block, smem, stream>>>(args) -> emu::launch(...)(args)
-    src = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(", r"emu::launch(\1, \2)(",
-                 src, flags=re.S)
+    # kernel<L, E><<<grid, block, smem, stream>>>(args) -> emu::launch(...)(args)
+    src = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(",
+                 r"emu::launch(\1, \2)(", src, flags=re.S)
     (d / f"{name}.cpp").write_text(
         "#include <cuda_runtime.h>\n"
         "namespace { alignas(16) uint8_t smem_raw[1 << 18]; }\n" + src)

@@ -25,8 +25,10 @@ from otter_tpu_torch.kernels import edit_banded as K7
 from otter_tpu_torch.kernels import myers_banded as K34
 from otter_tpu_torch.kernels import myers_pallas as K1
 from otter_tpu_torch.kernels import myers_striped as K2
-from otter_tpu_torch.kernels.edit_engine import EditDistanceEngine
+from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+from otter_tpu_torch.kernels.edit_engine import EditDistanceEngine, MeshEngine
 from otter_tpu_torch.models.assemble import assemble
+from otter_tpu_torch.ops.align_batch import _ends_free_banded_numpy
 
 from fixtures import make_reference, simulate_region_bam
 
@@ -61,6 +63,29 @@ def _mutate(rng, s, rate):
 
 def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+
+def k9_jobs(rng, k, count, lo, hi):
+    """Ends-free jobs for a K9 pass at band k: texts of lo-hi chars with N
+    bases, each pattern a mutated piece of its text, frees on both sides,
+    one side and none (up to the length difference, as the callers give
+    them), patterns of different lengths (rows past the shorter ones), and
+    short jobs whose last column starts in row 0's band (n <= k) or whose
+    pattern is empty."""
+    jobs = []
+    for q in range(count):
+        t = "".join(rng.choice("ACGTN") for _ in range(rng.randint(lo, hi)))
+        a = rng.randint(0, min(30, len(t) // 4))
+        b = len(t) - rng.randint(0, min(30, len(t) // 4))
+        p = "".join(c if rng.random() > [0.01, 0.1, 0.3][q % 3]
+                    else rng.choice("ACGTN") for c in t[a:b]) or "A"
+        ld = abs(len(t) - len(p))
+        frees = [(ld, ld, 0, 0), (0, 0, ld, ld), (a, 0, 0, len(t) - b),
+                 (0, 0, 0, 0), (0, ld, a, 0), (ld // 2, 0, 0, ld)][q % 6]
+        jobs.append((p, t, *frees) if q % 2 else (t, p, *frees))
+    jobs += [("ACGTA", "ACG", 0, 5, 0, 0), ("ACNT", "AGNT", 1, 0, 0, 2),
+             ("", "ACGT", 0, 0, 2, 3)]
+    return jobs
 
 
 def _column_scores(p, t, tb, pe):
@@ -562,3 +587,71 @@ def test_compare_engine_failure_raises(cuda_device, tmp_path, monkeypatch):
     p = PortOpts()
     with pytest.raises(RuntimeError, match="engine failed"):
         compare(p, bed, truth, query, out=io.StringIO())
+
+
+@pytest.mark.parametrize("k", [32, 64, 128, 256, 511, 1024, 2048])
+def test_edit_banded_ends_free_cuda_matches_plain(cuda_device, k):
+    """K9 on the card (the warp kernel to k = 511, the block kernel above)
+    equals its plain version on every job (exact, INF included) and the
+    numpy pass of edit_ends_free_batch; and a launch of one job."""
+    rng = random.Random(900 + k)
+    jobs = k9_jobs(rng, k, 40, 2 * k + 2, 2 * k + 400)
+    members = list(range(len(jobs)))
+    want_np = np.minimum(_ends_free_banded_numpy(jobs, members, k), K7.INF)
+    for sel in (members[:1], members):
+        args = [_t(y, cuda_device) for y in K7.pack_ends_free(jobs, sel, k)]
+        before = K7.edit_banded_ends_free_cuda.launches
+        got = K7.edit_banded_ends_free(*args, k)
+        assert K7.edit_banded_ends_free_cuda.launches == before + 1
+        assert torch.equal(got, K7.edit_banded_ends_free_torch(*args, k))
+    assert np.array_equal(got.cpu().numpy(), want_np)
+
+
+def test_mesh_engine_cuda_two_shards_match_one_device(cuda_device):
+    """The mesh engine on one card in two shards equals the engine on that
+    card (exact) on distances of every route and on ends-free jobs, with
+    the same routing counters; its two-sided and non-ACGT ends-free jobs
+    run on K9."""
+    rng = random.Random(86)
+    pairs = []
+    for lo, hi in ((1, 128), (129, 512), (513, 2048)):
+        for _ in range(20):
+            s = _acgt(rng, rng.randint(lo, hi))
+            pairs.append((s, _mutate(rng, s, 0.05)))
+    long_a = _acgt(rng, 2300)
+    pairs += [(long_a, _mutate(rng, long_a, 0.02)),
+              ("ACGTNACGT" * 5, "ACGTACGT" * 6), ("", "ACG")]
+    jobs = k9_jobs(rng, 32, 30, 100, 600)
+    one = EditDistanceEngine(cuda_device)
+    mesh = MeshEngine((cuda_device, cuda_device))
+    assert np.array_equal(mesh.distances(pairs), one.distances(pairs))
+    before = K7.edit_banded_ends_free_cuda.launches
+    got = mesh.ends_free(jobs)
+    assert K7.edit_banded_ends_free_cuda.launches > before
+    assert got.tolist() == [edit_distance_ends_free(*j) for j in jobs]
+    assert np.array_equal(got, one.ends_free(jobs))
+    c1, cm = one.counters(), mesh.counters()
+    assert cm["jobs_k9"] > 0
+    assert cm["jobs_host"] + cm["jobs_k9"] == c1["jobs_host"]
+    assert {k: v for k, v in cm.items() if k not in ("jobs_host", "jobs_k9")} \
+        == {k: v for k, v in c1.items() if k not in ("jobs_host", "jobs_k9")}
+    assert all(c["pairs_k1"] > 0 for c in mesh.shard_counters())
+
+
+def test_assemble_mesh_cuda_byte_identical(cuda_device, tmp_path,
+                                           monkeypatch):
+    """assemble on one card in two shards (the device KDE on, so K8 runs on
+    both) writes the same SAM bytes as on the card alone."""
+    from otter_tpu_torch.config import OtterOpts as PortOpts
+
+    bam, bed = _tandem_loci(tmp_path)
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "1")
+    texts = []
+    for backend in (TorchDistBackend(cuda_device),
+                    TorchDistBackend(mesh=(cuda_device, cuda_device))):
+        p = PortOpts()
+        p.read_group = "S1"
+        out = io.StringIO()
+        assemble(bam, bed, "", False, p, out=out, dist_backend=backend)
+        texts.append(out.getvalue())
+    assert texts[0] == texts[1] and texts[0]

@@ -1,4 +1,4 @@
-"""The CUDA sources of K7 (otter_tpu_torch/csrc/edit_banded.cu) and K2
+"""The CUDA sources of K7 and K9 (otter_tpu_torch/csrc/edit_banded.cu) and K2
 (csrc/myers_striped.cu) run on the CPU: g++ compiles each against the
 emulation of the CUDA surface in tests/test_torch_affine_emulated.py (one
 std::thread per CUDA thread; a warp meets at every shuffle, a block at every
@@ -19,6 +19,7 @@ from otter_tpu_torch.kernels import edit_banded as K7
 from otter_tpu_torch.kernels import myers_striped as K2
 
 from test_torch_affine_emulated import build_emulated
+from test_torch_cuda import k9_jobs
 
 CSRC = K7.__file__.rsplit("/", 2)[0] + "/csrc/"
 CPU = torch.device("cpu")
@@ -30,6 +31,14 @@ def k7_emulated(tmp_path_factory):
     so = build_emulated(tmp_path_factory, CSRC + "edit_banded.cu")
     so.otter_edit_banded.restype = I
     so.otter_edit_banded.argtypes = [P, P, P, I, I, P, I, P, P]
+    return so
+
+
+@pytest.fixture(scope="module")
+def k9_emulated(k7_emulated):
+    so = k7_emulated
+    so.otter_edit_banded_ends_free.restype = I
+    so.otter_edit_banded_ends_free.argtypes = [P, P, P, I, I, I, P, I, P, P]
     return so
 
 
@@ -115,6 +124,45 @@ def test_k7_cuda_source_emulated_match_plain(k7_emulated, k):
     assert np.array_equal(got, want)
     assert (want < K7.INF).any() and ((want == K7.INF).any() or k > 1000)
     got1, want1 = _k7_run(k7_emulated, pairs[:1], k)
+    assert np.array_equal(got1, want1)
+
+
+def _k9_run(so, jobs, k):
+    ax, bxp, meta = K7.pack_ends_free(jobs, range(len(jobs)), k)
+    B = len(jobs)
+    W = 2 * (k + 1)
+    out = np.full(B, -7, dtype=np.int32)
+    scratch = np.zeros(W * B if W > K7.SMEM_LANES else 1, dtype=np.int32)
+    err = so.otter_edit_banded_ends_free(
+        ax.ctypes.data, bxp.ctypes.data, meta.ctypes.data, ax.shape[1],
+        bxp.shape[1], k, out.ctypes.data, B, scratch.ctypes.data, None)
+    assert err == 0
+    want = K7.edit_banded_ends_free_torch(
+        *(torch.from_numpy(x) for x in (ax, bxp, meta)), k).numpy()
+    return out, want
+
+
+# k -> (jobs, shortest, longest text): the warp kernel at L = 4, 8, 12, 24
+# and 32 lanes a thread (k = 32, 64, 128: the ladder's first rungs), the
+# block kernel with the row in shared memory (600) and in device-memory
+# scratch (16500)
+K9_CASES = {32: (12, 70, 200), 64: (12, 130, 300), 128: (8, 100, 300),
+            256: (6, 60, 200), 511: (4, 40, 150), 600: (3, 30, 90),
+            16500: (2, 10, 24)}
+
+
+@pytest.mark.parametrize("k", list(K9_CASES))
+def test_k9_cuda_source_emulated_match_plain(k9_emulated, k):
+    """K9 as written for the card, on the emulated warps and blocks: equal
+    to the plain version on every job (exact, INF included), with rows of
+    different lengths in one launch; and a launch of one job."""
+    rng = random.Random(9000 + k)
+    count, lo, hi = K9_CASES[k]
+    jobs = k9_jobs(rng, k, count, lo, hi)
+    got, want = _k9_run(k9_emulated, jobs, k)
+    assert np.array_equal(got, want)
+    assert (want < K7.INF).any()
+    got1, want1 = _k9_run(k9_emulated, jobs[:1], k)
     assert np.array_equal(got1, want1)
 
 

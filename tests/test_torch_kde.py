@@ -563,3 +563,39 @@ def test_cuda_source_emulated_division_paths(k8_emulated_test_exp, case):
         m_want, s_want = _halving_reference(V, nv, bwv, _exp_test, XS_SUB)
     assert np.array_equal(m, m_want)
     assert np.array_equal(s, s_want)
+
+
+def test_cuda_source_geometry_per_device(k8_emulated):
+    """K8's launch rule reads the SM count of the device it launches on:
+    on the emulation's second device (66 SMs) 510 groups of 8 cells are 4
+    an SM, so a thread holds 8 cells, where the H100's 132 SMs give 4.
+    The count is cached per device, so the first device's launch is the
+    same after the second's, and threads on the two devices at once (ctypes
+    drops the GIL) each get their own device's launch."""
+    import threading
+
+    so = k8_emulated
+    so.emu_set_device.restype = ctypes.c_int
+    so.emu_set_device.argtypes = [ctypes.c_int]
+    h100 = (4, 4, 260, 512)
+    assert _geometry(so, 10, 8192, 4950) == h100
+    try:
+        assert so.emu_set_device(1) == 0
+        small = _geometry(so, 10, 8192, 4950)
+    finally:
+        assert so.emu_set_device(0) == 0
+    assert small == (2, 8, 130, 256)
+    assert _geometry(so, 10, 8192, 4950) == h100
+    seen = {0: set(), 1: set()}
+
+    def on(dev):
+        assert so.emu_set_device(dev) == 0
+        for _ in range(200):
+            seen[dev].add(_geometry(so, 10, 8192, 4950))
+
+    threads = [threading.Thread(target=on, args=(d,)) for d in (0, 1, 0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert seen == {0: {h100}, 1: {small}}
