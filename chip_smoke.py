@@ -20,10 +20,11 @@ exits non-zero:
    the native affine cigar ladder); then the time of the kernel and of the
    plain version on one workload of the shape the main path gives it, its
    band (or DP) Gcells/s and its bound; K9 (held against the numpy pass of
-   ``edit_ends_free_batch`` too) at k = 32 ... 511 (the warp kernel) and
-   1023, 2047 on 10 kb reads (the block kernel), timed on 64 jobs shaped
-   like the route-coverage cell's passes; K2 also at every lane-group size G
-   on its timing set, K7 also at k = 1023 (its block kernel); K3 and K4 at
+   ``edit_ends_free_batch`` too) at k = 32 ... 511 (the warp kernel),
+   512 and 1023 ... 8191 on 10 kb reads (a block of P warps), 9000 on
+   10 kb reads (the block kernel), each with the kernel and instance it
+   takes, timed on 64 jobs shaped like the route-coverage cell's passes;
+   K2 also at every lane-group size G on its timing set, K7 also at k = 1023 (its block kernel); K3 and K4 at
    every lane-group size on their timing sets and on sets shaped like the
    reference-default region's rungs (10 kb pairs at k = 63 and 511, K4 with
    free begins up to 2 kb); K5 and K6 are swept over every band they have
@@ -375,10 +376,14 @@ def sass_loops(lib: str) -> None:
                 if to is not None and to <= at:
                     loops.append(((at - to) // 16 + 1, to, at))
         longest = max(loops, default=(0, 0, 0))[0]
-        lanes = re.search(r"(?:affine_tb|edit_banded_warp)_kernelILi(\d+)E",
+        # L, the lanes a thread: the first template argument, the second
+        # of K9's P-warp kernel (whose longest loop is a row)
+        lanes = re.search(r"(?:affine_tb|edit_banded_warp)_kernelILi(\d+)E|"
+                          r"edit_banded_warps_kernelILi\d+ELi(\d+)E",
                           fn_name)
-        per_cell = (f" ({longest / int(lanes.group(1)):.1f} per cell over "
-                    f"L = {lanes.group(1)} lanes)" if lanes else "")
+        L = int(lanes.group(1) or lanes.group(2)) if lanes else 0
+        per_cell = (f" ({longest / L:.1f} per cell over L = {L} lanes)"
+                    if lanes else "")
         cells = re.search(r"kde_scaled_kernelILi(\d+)E", fn_name)
         if cells:
             # K8's step loops (with the reciprocal division or __fdiv_rn,
@@ -987,8 +992,13 @@ def k9_args(dev, jobs, k):
 def kernel_k9(dev, rs) -> dict:
     """K9 against its plain version and the numpy pass of
     edit_ends_free_batch, exact: the warp kernel at k = 32 ... 511 on reads
-    of 0.1-2 kb, the block kernel at k = 1023 and 2047 on 10 kb reads;
-    timed on a set shaped like the route-coverage cell's passes."""
+    of 0.1-2 kb, P warps at k = 512 on such reads (W = 1026, two lanes past
+    the warp kernel) and at k = 1023, 2047, 4095 and 8191 on 10 kb reads
+    (every P-warp instance), the block kernel past k_max at k = 9000 on
+    such reads; timed on a set shaped like the route-coverage cell's
+    passes. The jobs at k = 512 and past 2047 come from seeds of their
+    own, so the other sets and the timing set are those of the runs before
+    they were added."""
     import torch
 
     from otter_tpu_torch.kernels import edit_banded as K9
@@ -996,9 +1006,13 @@ def kernel_k9(dev, rs) -> dict:
 
     for k, n, lo, hi in ((32, 64, 100, 400), (64, 64, 200, 800),
                          (128, 48, 300, 1200), (256, 32, 600, 2000),
-                         (511, 24, 1100, 2000), (1023, 2, 10000, 10400),
-                         (2047, 2, 10000, 10400)):
-        jobs = ends_free_jobs(rs, n, lo, hi, min(k - 16, lo // 2))
+                         (511, 24, 1100, 2000), (512, 24, 1100, 2000),
+                         (1023, 2, 10000, 10400), (2047, 2, 10000, 10400),
+                         (4095, 2, 10000, 10400), (8191, 2, 10000, 10400),
+                         (9000, 2, 10000, 10400)):
+        own = k == 512 or k > 2047
+        jobs = ends_free_jobs(np.random.default_rng(k) if own else rs,
+                              n, lo, hi, min(k - 16, lo // 2))
         a = k9_args(dev, jobs, k)
         kern = K9.edit_banded_ends_free(*a, k)
         plain = K9.edit_banded_ends_free_torch(*a, k)
@@ -1008,7 +1022,10 @@ def kernel_k9(dev, rs) -> dict:
         check(bool(torch.equal(kern, plain)) and np.array_equal(
             kern.cpu().numpy(), want) and int(one[0]) == int(kern[0]),
             f"K9 disagrees with its plain version or the numpy pass at k {k}")
-        log(f"K9 k {k} ({'warp' if k <= 511 else 'block'} kernel): {n} jobs "
+        kind, P, L = K9.ends_free_shape(k)
+        inst = {"warp": f"{L} lanes a thread", "warps": f"{P} warps of {L} "
+                "lanes", "block": f"{P} threads of {L} lanes"}[kind]
+        log(f"K9 k {k} ({kind} kernel, {inst}): {n} jobs "
             f"of {lo}-{hi} bp and a launch of one job, == plain and the "
             f"numpy pass (max |diff| 0); "
             f"{int((kern < K9.INF).sum())} jobs with an end cell")
@@ -1020,7 +1037,7 @@ def kernel_k9(dev, rs) -> dict:
     check(bool(torch.equal(K9.edit_banded_ends_free(*a, 512), want)),
           "K9 disagrees with its plain version on the timing set")
     return report("edit_banded_ends_free",
-                  "K9 edit_banded_ends_free (k 32-2047; timing set: 64 "
+                  "K9 edit_banded_ends_free (k 32-9000; timing set: 64 "
                   "route-coverage-shaped jobs at k 512, band cells)",
                   len(tjobs), cells, True, True, ms, plain_ms, 0,
                   nbytes(*a) + 4 * len(tjobs))

@@ -59,7 +59,9 @@
 // than with wider rows.
 //
 // Kernel K9: banded two-sided ends-free Levenshtein row DP over any byte
-// alphabet, the same kernels instantiated with kEndsFree = true.
+// alphabet: K7's warp kernel instantiated with kEndsFree = true for
+// k <= 511, a kernel of its own for 511 < k <= k_max = 8447, and K7's
+// block kernel with kEndsFree beyond.
 //
 // Replaces otter_tpu/kernels/edit_pallas.py::edit_banded_ends_free_jnp (jnp,
 // the fixed-k pass of the ends-free doubling ladder that the JAX package's
@@ -79,6 +81,40 @@
 // the minimum of the threads' candidates at the end. INF = 2^24 when there
 // is none. Validity (best <= k - reach) is the caller's check, as in the jnp
 // function. Rows past m are not run: the jnp function keeps the row there.
+//
+// K9 at 511 < k <= k_max (the ladder's rungs 512 to 8192; the block
+// kernel paid ~1 us a row there: three barriers, the row in shared memory,
+// a global load of the text on every lane): one block of P warps per job
+// (edit_banded_warps_kernel<P, L>), the warp kernel's layout stretched over
+// P warps: thread t of warp p keeps lanes [(32 p + t) L, + L) in
+// registers, W rounded up to 32 P L lanes, the extra ones held at INF. The
+// text window moves one lane a row in registers; each warp loads the
+// pattern chars and the chars entering its last lane 32 rows at a time (the
+// next 32 ahead), one coalesced load per lane, and hands them out by
+// shuffles. "Up" comes from thread t + 1 by __shfl_down_sync, and for a
+// warp's last thread from the next warp's first lane, which it computes
+// itself (below). A row has one __syncthreads(): before it every warp
+// publishes its inclusive scan total (the least v - w over its lanes) and
+// its first lane's v - w into slots double-buffered by row parity; after
+// it warp p takes the least total of warps 0 .. p - 1 as its exclusive
+// prefix (P - 1 broadcast reads) and, as the next row's "up", the next
+// warp's first lane after this row: min(that prefix, its own total, the
+// next warp's first v - w) + w, INF outside the band. A warp writes a
+// parity's slots again only two rows later, after the next barrier, which
+// every warp reaches after its reads of them. Every warp runs the job's m
+// rows.
+//
+// What bounds it: a row's latency, since rows depend on one another and a
+// pass holds few jobs (10 to 64 at k = 512; a job is one block on one SM).
+// A row is L cell updates with a dependent running minimum, a 5-step
+// shuffle scan, one barrier of P warps and P - 1 shared reads, and the
+// L-lane write-back: a few hundred cycles, where the block kernel took
+// ~2,000. The instance is the one of fewest lanes that holds W: P = 4
+// warps of L = 9 lanes, 8 warps of 9 or 17, 16 warps of 17 or 33 (512
+// threads under 128 registers; k_max = 8447). Two warps a scheduler hide
+// some of a row's latency; four or more lose it again to the barrier and
+// the broadcast reads (on 10 kb reads 8 x 9 lanes beat 4 x 17 at k = 1023,
+// 8 x 17 beat 16 x 9 at 2047, 16 x 17 beat 32 x 9 at 4095).
 
 #include <cstdint>
 
@@ -92,6 +128,34 @@ constexpr int kNone = 1 << 30;  // identity of min: above every value
 constexpr int kWarps = 4;       // pairs (warps) per block, k <= 511
 constexpr int kChunk = 32;      // rows of chars loaded at a time
 constexpr int kSmemLanes = 32768;  // k > 511: row in shared memory up to here
+// The warp kernel's lanes a thread, fewest first (k <= 511)
+constexpr int kWarpL[] = {1, 2, 4, 8, 12, 16, 24, 32};
+constexpr int kWarpN = 8;
+// K9's P-warp instances (P, L), fewest lanes first: W <= 32 P L lanes,
+// so k_max = 32 * 16 * 33 / 2 - 1 = 8447
+constexpr int kWarpsP[] = {4, 8, 8, 16, 16};
+constexpr int kWarpsL[] = {9, 9, 17, 17, 33};
+constexpr int kWarpsN = 5;
+
+// The kernel a band k takes (launch and otter_edit_banded_ends_free_shape
+// both read it): kind 0 is the warp
+// kernel with kWarpL[x] lanes a thread, 1 K9's P-warp kernel with
+// kWarpsP[x] warps of kWarpsL[x] lanes (only with ends_free), 2 the block
+// kernel with x threads.
+struct Choice {
+  int kind, x;
+};
+
+Choice choose(int k, bool ends_free) {
+  const int W = 2 * (k + 1);
+  for (int x = 0; x < kWarpN; ++x) {
+    if (W <= 32 * kWarpL[x]) return {0, x};
+  }
+  for (int x = 0; ends_free && x < kWarpsN; ++x) {
+    if (W <= 32 * kWarpsP[x] * kWarpsL[x]) return {1, x};
+  }
+  return {2, min(1024, (W / 8 + 31) / 32 * 32)};
+}
 
 __device__ __forceinline__ int load_or0(const int32_t* p, int len, int idx) {
   return idx < len ? p[idx] : 0;
@@ -349,6 +413,185 @@ edit_banded_block_kernel(const int32_t* __restrict__ a,
   }
 }
 
+// The least of x[0 .. N), as a tree of log2 N levels.
+template <int N>
+__device__ __forceinline__ int min_tree(const int (&x)[N]) {
+  int y[N];
+#pragma unroll
+  for (int l = 0; l < N; ++l) y[l] = x[l];
+#pragma unroll
+  for (int s = 1; s < N; s <<= 1) {
+#pragma unroll
+    for (int l = 0; l + s < N; l += 2 * s) y[l] = min(y[l], y[l + s]);
+  }
+  return y[0];
+}
+
+// K9, one block of P warps per job; thread t = 32 p + lane keeps lanes
+// [t L, t L + L). The slots: [row parity][warp totals, warps' first lanes]
+// [P], then the warps' end cells [P].
+template <int P, int L>
+__global__ void __launch_bounds__(32 * P, 1)
+edit_banded_warps_kernel(const int32_t* __restrict__ a,
+                         const int32_t* __restrict__ bxp,
+                         const int32_t* __restrict__ meta, int La, int Lb,
+                         int k, int32_t* __restrict__ out) {
+  static_assert(P >= 2, "a job on several warps");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  int32_t* slots = reinterpret_cast<int32_t*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x;
+  const int k1 = k + 1;
+  const int W = 2 * k1;
+  const int32_t* job = meta + static_cast<size_t>(b) * 6;
+  const int m = min(job[0], La);
+  const int n = job[1];
+  const int pb = job[2];
+  const int pe = job[3];
+  const int tb = job[4];
+  const int32_t* arow = a + static_cast<size_t>(b) * La;
+  const int32_t* brow = bxp + static_cast<size_t>(b) * Lb + 1;
+  const int Lt = Lb - 1;
+  const int w0 = (32 * warp + lane) * L;
+  const int wn = 32 * L * (warp + 1);  // the next warp's first lane
+
+  int H[L], txt[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int j0 = w0 + l - k1;
+    H[l] = (w0 + l < W && j0 >= 0 && j0 <= n) ? max(0, j0 - tb) : kInf;
+    txt[l] = load_or0(brow, Lt, w0 + l);  // row 1's window
+  }
+  // the "up" operand of the warp's last lane: lane wn of the row before
+  int up_wn = kInf;
+  if (warp + 1 < P && wn < W && wn - k1 >= 0 && wn - k1 <= n) {
+    up_wn = max(0, wn - k1 - tb);
+  }
+  int best = kInf;  // this thread's least end cell so far
+  if (pe >= m && n + k1 < W) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (w0 + l == n + k1) best = H[l];
+    }
+  }
+  // rows 32 c + 1 .. 32 c + 32: the pattern chars and the chars entering
+  // lane wn - 1, one of each per lane; the next chunk is loaded a chunk
+  // ahead, and a row's two chars are shuffled out during the row before
+  int aw = load_or0(arow, La, lane);
+  int nw = load_or0(brow, Lt, wn - 1 + lane);
+  int aw_next = load_or0(arow, La, 32 + lane);
+  int nw_next = load_or0(brow, Lt, wn + 31 + lane);
+  int ac = __shfl_sync(kAll, aw, 0);
+#pragma unroll 1
+  for (int i = 1; i <= m; ++i) {
+    int up_next = __shfl_down_sync(kAll, H[0], 1);
+    if (lane == 31) up_next = up_wn;
+    // a lane is in the band iff its column j = j0 + l is in [0, jhi]
+    const unsigned jhi = min(n, i + k);  // j <= n and w <= W - 1
+    const int j0 = i + w0 - k1;
+    const int c0 = max(0, i - pb);       // the column j = 0
+
+    // pass 1: v - l of every lane
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int up = l + 1 < L ? H[l + 1] : up_next;
+      int v = min(up + 1, H[l] + (txt[l] != ac ? 1 : 0));
+      if (j0 + l == 0) v = c0;
+      if (static_cast<unsigned>(j0 + l) > jhi) v = kInf;
+      H[l] = v - l;
+    }
+    // the warp's inclusive prefix-min of v - w, from the thread minima (a
+    // tree); a lane below d gets its own value from __shfl_up_sync
+    int incl = min_tree<L>(H) - w0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      incl = min(incl, __shfl_up_sync(kAll, incl, d));
+    }
+    const int excl = __shfl_up_sync(kAll, incl, 1);
+    // the running minimum of v - l over the thread's lanes
+#pragma unroll
+    for (int l = 1; l < L; ++l) H[l] = min(H[l], H[l - 1]);
+    // the warp's total and its first lane's v - w go to this row's slots
+    int32_t* tot = slots + (i & 1) * 2 * P;
+    if (lane == 31) tot[warp] = incl;
+    if (lane == 0) tot[P + warp] = H[0] - w0;
+    // row i + 1's chars, and its window (one lane on: bxp[i + 1 + w])
+    if ((i & 31) == 0) {
+      aw = aw_next;
+      nw = nw_next;
+      aw_next = load_or0(arow, La, i + 32 + lane);
+      nw_next = load_or0(brow, Lt, i + 31 + wn + lane);
+    }
+    ac = __shfl_sync(kAll, aw, i & 31);
+    const int nc = __shfl_sync(kAll, nw, i & 31);
+    int enter = __shfl_down_sync(kAll, txt[0], 1);
+    if (lane == 31) enter = nc;
+#pragma unroll
+    for (int l = 0; l + 1 < L; ++l) txt[l] = txt[l + 1];
+    txt[L - 1] = enter;
+    __syncthreads();
+
+    // the least v - w of the warps before this one, and the next warp's
+    // first lane
+    int prev[P - 1];
+#pragma unroll
+    for (int q = 0; q + 1 < P; ++q) prev[q] = q < warp ? tot[q] : kNone;
+    const int before = min_tree<P - 1>(prev);
+    const int first_next = warp + 1 < P ? tot[P + warp + 1] : kInf;
+    const int pre = (lane == 0 ? before : min(before, excl)) + w0;
+
+    // pass 2: the row
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      H[l] = static_cast<unsigned>(j0 + l) > jhi ? kInf : min(pre, H[l]) + l;
+    }
+    // lane 31: the next warp's first lane after this row, the next row's
+    // "up" of its last lane (incl is the warp's total there)
+    const int jn = i + wn - k1;
+    up_wn = warp + 1 < P && static_cast<unsigned>(jn) <= jhi
+                ? min(min(before, incl), first_next) + wn
+                : kInf;
+    // the last column (j = n) is lane n - i + k + 1 of row i
+    if (m - i <= pe) {
+      const int lc = n - i + k1 < W ? n - i + k1 - w0 : -1;
+      int c[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) c[l] = l == lc ? H[l] : kInf;
+      best = min(best, min_tree<L>(c));
+    }
+  }
+
+  // the last row over j in [max(0, n - te), n], then the block's minimum
+  const int jlo = max(0, n - job[5]);
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int j = m + w0 + l - k1;
+    if (j >= jlo && j <= n) best = min(best, H[l]);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    best = min(best, __shfl_xor_sync(kAll, best, d));
+  }
+  int32_t* ends = slots + 4 * P;
+  if (lane == 0) ends[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int q = 1; q < P; ++q) best = min(best, ends[q]);
+    out[b] = best;
+  }
+}
+
+template <int P, int L>
+cudaError_t launch_warps(const int32_t* a, const int32_t* bxp,
+                         const int32_t* meta, int La, int Lb, int k,
+                         int32_t* out, int n_jobs, cudaStream_t stream) {
+  edit_banded_warps_kernel<P, L><<<n_jobs, 32 * P, 4 * 5 * P, stream>>>(
+      a, bxp, meta, La, Lb, k, out);
+  return cudaGetLastError();
+}
+
 template <int L, bool kEndsFree>
 cudaError_t launch_warp(const int32_t* a, const int32_t* bpad,
                         const int32_t* mn, int La, int Lb, int k,
@@ -362,10 +605,9 @@ cudaError_t launch_warp(const int32_t* a, const int32_t* bpad,
 template <bool kEndsFree>
 cudaError_t launch_block(const int32_t* a, const int32_t* bpad,
                          const int32_t* mn, int La, int Lb, int k,
-                         int32_t* out, int n_pairs, int32_t* scratch,
-                         cudaStream_t stream) {
+                         int32_t* out, int n_pairs, int threads,
+                         int32_t* scratch, cudaStream_t stream) {
   const int W = 2 * (k + 1);
-  const int threads = min(1024, (W / 8 + 31) / 32 * 32);
   const int smem = (W <= kSmemLanes ? 4 * W : 0) + 4 * 32;
   if (W > kSmemLanes && scratch == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -377,8 +619,9 @@ cudaError_t launch_block(const int32_t* a, const int32_t* bpad,
   return cudaGetLastError();
 }
 
-// The warp kernel at the fewest lanes a thread that hold the band, or the
-// block kernel past 32 (k > 511).
+// K7 and K9 at the kernel choose() picks: the warp kernel at the fewest
+// lanes a thread that hold the band, K9's P warps of the fewest lanes to
+// k_max, the block kernel beyond.
 template <bool kEndsFree>
 int launch(const int32_t* a, const int32_t* bpad, const int32_t* mn, int La,
            int Lb, int k, int32_t* out, int n_pairs, void* scratch,
@@ -388,25 +631,43 @@ int launch(const int32_t* a, const int32_t* bpad, const int32_t* mn, int La,
   }
   if (n_pairs <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int lanes = (2 * (k + 1) + 31) / 32;  // a thread's lanes in a warp
   constexpr bool E = kEndsFree;
-  if (lanes <= 1) return launch_warp<1, E>(a, bpad, mn, La, Lb, k, out,
-                                           n_pairs, s);
-  if (lanes <= 2) return launch_warp<2, E>(a, bpad, mn, La, Lb, k, out,
-                                           n_pairs, s);
-  if (lanes <= 4) return launch_warp<4, E>(a, bpad, mn, La, Lb, k, out,
-                                           n_pairs, s);
-  if (lanes <= 8) return launch_warp<8, E>(a, bpad, mn, La, Lb, k, out,
-                                           n_pairs, s);
-  if (lanes <= 12) return launch_warp<12, E>(a, bpad, mn, La, Lb, k, out,
-                                             n_pairs, s);
-  if (lanes <= 16) return launch_warp<16, E>(a, bpad, mn, La, Lb, k, out,
-                                             n_pairs, s);
-  if (lanes <= 24) return launch_warp<24, E>(a, bpad, mn, La, Lb, k, out,
-                                             n_pairs, s);
-  if (lanes <= 32) return launch_warp<32, E>(a, bpad, mn, La, Lb, k, out,
-                                             n_pairs, s);
-  return launch_block<E>(a, bpad, mn, La, Lb, k, out, n_pairs,
+  const Choice c = choose(k, kEndsFree);
+  if (c.kind == 0) {
+    switch (c.x) {
+      case 0: return launch_warp<kWarpL[0], E>(a, bpad, mn, La, Lb, k, out,
+                                               n_pairs, s);
+      case 1: return launch_warp<kWarpL[1], E>(a, bpad, mn, La, Lb, k, out,
+                                               n_pairs, s);
+      case 2: return launch_warp<kWarpL[2], E>(a, bpad, mn, La, Lb, k, out,
+                                               n_pairs, s);
+      case 3: return launch_warp<kWarpL[3], E>(a, bpad, mn, La, Lb, k, out,
+                                               n_pairs, s);
+      case 4: return launch_warp<kWarpL[4], E>(a, bpad, mn, La, Lb, k, out,
+                                               n_pairs, s);
+      case 5: return launch_warp<kWarpL[5], E>(a, bpad, mn, La, Lb, k, out,
+                                               n_pairs, s);
+      case 6: return launch_warp<kWarpL[6], E>(a, bpad, mn, La, Lb, k, out,
+                                               n_pairs, s);
+      default: return launch_warp<kWarpL[7], E>(a, bpad, mn, La, Lb, k, out,
+                                                n_pairs, s);
+    }
+  }
+  if (c.kind == 1) {
+    switch (c.x) {
+      case 0: return launch_warps<kWarpsP[0], kWarpsL[0]>(a, bpad, mn, La, Lb,
+                                                          k, out, n_pairs, s);
+      case 1: return launch_warps<kWarpsP[1], kWarpsL[1]>(a, bpad, mn, La, Lb,
+                                                          k, out, n_pairs, s);
+      case 2: return launch_warps<kWarpsP[2], kWarpsL[2]>(a, bpad, mn, La, Lb,
+                                                          k, out, n_pairs, s);
+      case 3: return launch_warps<kWarpsP[3], kWarpsL[3]>(a, bpad, mn, La, Lb,
+                                                          k, out, n_pairs, s);
+      default: return launch_warps<kWarpsP[4], kWarpsL[4]>(
+          a, bpad, mn, La, Lb, k, out, n_pairs, s);
+    }
+  }
+  return launch_block<E>(a, bpad, mn, La, Lb, k, out, n_pairs, c.x,
                          static_cast<int32_t*>(scratch), s);
 }
 
@@ -431,5 +692,24 @@ extern "C" int otter_edit_banded_ends_free(const int32_t* ax,
                                            int Lb, int k, int32_t* out,
                                            int n_jobs, void* scratch,
                                            void* stream) {
-  return launch<true>(ax, bxp, meta, Lp, Lb, k, out, n_jobs, scratch, stream);
+  return launch<true>(ax, bxp, meta, Lp, Lb, k, out, n_jobs, scratch,
+                      stream);
+}
+
+// K9's kernel and instance at band k, as choose() picks them: shape gets
+// {0, 1, L} (a warp of L lanes a thread), {1, P, L} (P warps of L) or
+// {2, threads, lanes a thread} (the block kernel). 0, or
+// cudaErrorInvalidValue for k < 0.
+extern "C" int otter_edit_banded_ends_free_shape(int k, int32_t* shape) {
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Choice c = choose(k, true);
+  shape[0] = c.kind;
+  if (c.kind == 0) {
+    shape[1] = 1, shape[2] = kWarpL[c.x];
+  } else if (c.kind == 1) {
+    shape[1] = kWarpsP[c.x], shape[2] = kWarpsL[c.x];
+  } else {
+    shape[1] = c.x, shape[2] = (2 * (k + 1) + c.x - 1) / c.x;
+  }
+  return static_cast<int>(cudaSuccess);
 }

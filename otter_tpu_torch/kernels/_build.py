@@ -124,6 +124,8 @@ def load() -> ctypes.CDLL:
             lib.otter_edit_banded_ends_free.restype = _I
             lib.otter_edit_banded_ends_free.argtypes = [_P, _P, _P, _I, _I,
                                                         _I, _P, _I, _P, _P]
+            lib.otter_edit_banded_ends_free_shape.restype = _I
+            lib.otter_edit_banded_ends_free_shape.argtypes = [_I, _P]
             lib.otter_affine_tb.restype = _I
             lib.otter_affine_tb.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P,
                                             _P, _I, _P, _P]

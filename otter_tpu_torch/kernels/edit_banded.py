@@ -22,7 +22,8 @@ and ``meta`` (B, 6) int32 = (m, n, pb, pe, tb, te), as
 ``pack_ends_free`` (the JAX package's ``_ends_free_mesh_runner``) builds
 them. The result is (B,) int32: each job's best end cell (INF when none),
 whose band validity (best <= k - reach) is the caller's check.
-``edit_banded_ends_free_cuda`` launches the kernel, ``_torch`` is the plain
+``edit_banded_ends_free_cuda`` launches the kernel (``ends_free_shape``
+names the kernel and instance a band takes), ``_torch`` is the plain
 version, and ``edit_banded_ends_free`` picks one by device.
 """
 
@@ -241,11 +242,12 @@ def edit_banded_ends_free_torch(ax: torch.Tensor, bxp: torch.Tensor,
 
 def edit_banded_ends_free_cuda(ax: torch.Tensor, bxp: torch.Tensor,
                                meta: torch.Tensor, k: int) -> torch.Tensor:
-    """K9 on the card (``csrc/edit_banded.cu``, K7's kernels with the
-    ends-free rules): one launch on the current stream, no
-    synchronisation; a warp per job for k <= 511, a block per job above
-    (the row in device-memory scratch, allocated here, past 32,768
-    lanes). Raises on bad inputs or a refused launch."""
+    """K9 on the card (``csrc/edit_banded.cu``): one launch on the current
+    stream, no synchronisation; a warp per job for k <= 511 (K7's warp
+    kernel with the ends-free rules), a block of P warps with the row in
+    registers to k = 8447, K7's block kernel beyond (the row in
+    device-memory scratch, allocated here, past 32,768 lanes). Raises on
+    bad inputs or a refused launch."""
     from . import _build
 
     _check_ends_free(ax, bxp, meta, k)
@@ -270,6 +272,19 @@ def edit_banded_ends_free_cuda(ax: torch.Tensor, bxp: torch.Tensor,
 
 
 edit_banded_ends_free_cuda.launches = 0
+
+
+def ends_free_shape(k: int) -> Tuple[str, int, int]:
+    """The kernel and instance K9 takes at band k, from the built library:
+    ("warp", 1, L) a warp per job of L lanes a thread, ("warps", P, L) P
+    warps of L, or ("block", threads, lanes a thread)."""
+    from . import _build
+
+    shape = np.zeros(3, dtype=np.int32)
+    lib = _build.load()
+    _build.check(lib, lib.otter_edit_banded_ends_free_shape(
+        k, shape.ctypes.data), "ends_free_shape")
+    return ("warp", "warps", "block")[shape[0]], int(shape[1]), int(shape[2])
 
 
 def edit_banded_ends_free(ax: torch.Tensor, bxp: torch.Tensor,

@@ -33,6 +33,7 @@ CUDA_RUNTIME_H = r"""
 #include <cstdint>
 #include <cstring>
 #include <memory>
+#include <semaphore>
 #include <thread>
 #include <vector>
 
@@ -95,6 +96,8 @@ namespace emu {
 struct Warp {
   std::barrier<> bar{32};
   uint64_t slot[2][32];
+  std::counting_semaphore<32> go{0};  // the warp's turn, when staggered
+  Warp* next = nullptr;               // the warp whose turn comes next
 };
 struct Block {
   std::barrier<> bar;
@@ -104,6 +107,19 @@ inline thread_local Warp* warp;
 inline thread_local Block* block;
 inline thread_local int lane;
 inline thread_local int parity;
+// stagger: 0, a block's warps run together; 1 (-1), between two
+// __syncthreads they run one at a time, from the first warp (the last), so
+// a warp runs on to its next barrier, writing the shared memory it writes
+// there, before the warps after it read what they read after the last one
+inline int stagger = 0;
+inline void wait_turn() {
+  if (stagger) warp->go.acquire();
+}
+inline void end_turn() {
+  if (!stagger) return;
+  warp->bar.arrive_and_wait();  // the warp's 32 lanes are done
+  if (lane == 0) warp->next->go.release(32);
+}
 // every lane posts its value, then reads the source lane's (or its own);
 // posts alternate between two slot sets, so one barrier a call suffices (a
 // lane posts to a set again only after every lane has passed the barrier
@@ -130,7 +146,12 @@ auto launch(F f, int grid, int block, int, void*) {
   return [=](auto... args) {
     for (int g = 0; g < grid; ++g) {
       std::vector<std::unique_ptr<Warp>> warps;
-      for (int q = 0; q < (block + 31) / 32; ++q) warps.emplace_back(new Warp);
+      const int nw = (block + 31) / 32;
+      for (int q = 0; q < nw; ++q) warps.emplace_back(new Warp);
+      for (int q = 0; q < nw && stagger; ++q) {
+        warps[q]->next = warps[(q + nw + stagger) % nw].get();
+      }
+      if (stagger) warps[stagger > 0 ? 0 : nw - 1]->go.release(32);
       Block blk(block);
 #ifdef EMU_WARPS_IN_TURN
       const int turn = 32;
@@ -148,7 +169,9 @@ auto launch(F f, int grid, int block, int, void*) {
             emu::block = &blk;
             lane = t % 32;
             parity = 0;
+            wait_turn();
             f(args...);
+            end_turn();
           });
         }
         for (auto& th : threads) th.join();
@@ -184,7 +207,12 @@ inline int __any_sync(unsigned, int p) {
   return any;
 }
 inline void __syncwarp() { emu::warp->bar.arrive_and_wait(); }
-inline void __syncthreads() { emu::block->bar.arrive_and_wait(); }
+inline void __syncthreads() {
+  emu::end_turn();
+  emu::block->bar.arrive_and_wait();
+  emu::wait_turn();
+}
+extern "C" void emu_set_stagger(int s) { emu::stagger = s; }
 inline unsigned __vcmpeq4(unsigned a, unsigned b) {
   unsigned r = 0;
   for (int c = 0; c < 4; ++c) {

@@ -589,13 +589,17 @@ def test_compare_engine_failure_raises(cuda_device, tmp_path, monkeypatch):
         compare(p, bed, truth, query, out=io.StringIO())
 
 
-@pytest.mark.parametrize("k", [32, 64, 128, 256, 511, 1024, 2048])
+@pytest.mark.parametrize("k", [32, 64, 128, 256, 511, 512, 1024, 2048,
+                               4095, 8191, 9000])
 def test_edit_banded_ends_free_cuda_matches_plain(cuda_device, k):
-    """K9 on the card (the warp kernel to k = 511, the block kernel above)
-    equals its plain version on every job (exact, INF included) and the
-    numpy pass of edit_ends_free_batch; and a launch of one job."""
+    """K9 on the card (the warp kernel to k = 511, P warps to k = 8447 at
+    every instance, the block kernel above) equals its plain version on
+    every job (exact, INF included) and the numpy pass of
+    edit_ends_free_batch; and a launch of one job."""
+    kind = "warp" if k <= 511 else "warps" if k <= 8447 else "block"
+    assert K7.ends_free_shape(k)[0] == kind
     rng = random.Random(900 + k)
-    jobs = k9_jobs(rng, k, 40, 2 * k + 2, 2 * k + 400)
+    jobs = k9_jobs(rng, k, 40 if k <= 2048 else 4, 2 * k + 2, 2 * k + 400)
     members = list(range(len(jobs)))
     want_np = np.minimum(_ends_free_banded_numpy(jobs, members, k), K7.INF)
     for sel in (members[:1], members):

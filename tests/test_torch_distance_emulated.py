@@ -39,6 +39,9 @@ def k9_emulated(k7_emulated):
     so = k7_emulated
     so.otter_edit_banded_ends_free.restype = I
     so.otter_edit_banded_ends_free.argtypes = [P, P, P, I, I, I, P, I, P, P]
+    so.otter_edit_banded_ends_free_shape.restype = I
+    so.otter_edit_banded_ends_free_shape.argtypes = [I, P]
+    so.emu_set_stagger.argtypes = [I]
     return so
 
 
@@ -142,28 +145,88 @@ def _k9_run(so, jobs, k):
     return out, want
 
 
-# k -> (jobs, shortest, longest text): the warp kernel at L = 4, 8, 12, 24
-# and 32 lanes a thread (k = 32, 64, 128: the ladder's first rungs), the
-# block kernel with the row in shared memory (600) and in device-memory
+# k -> (jobs, shortest, longest text, the kernel and instance that k takes:
+# (0, 1, L) the warp kernel of L lanes a thread, (1, P, L) P warps of L,
+# (2, threads, lanes a thread) the block kernel): the warp kernel at L = 4,
+# 8, 12, 24 and 32 (k = 32, 64, 128: the ladder's first rungs); P warps at
+# every instance: k = 512 (W = 1026, two lanes past the warp kernel), 575
+# (W = 1152 = 32 P L, the last lane in the band), 600 and 1100 (W not a
+# multiple of 32 P L), 1500, 2200 and 8447 (k_max, 16 warps of 33); the
+# block kernel with the row in shared memory (9000) and in device-memory
 # scratch (16500)
-K9_CASES = {32: (12, 70, 200), 64: (12, 130, 300), 128: (8, 100, 300),
-            256: (6, 60, 200), 511: (4, 40, 150), 600: (3, 30, 90),
-            16500: (2, 10, 24)}
+K9_CASES = {32: (12, 70, 200, (0, 1, 4)), 64: (12, 130, 300, (0, 1, 8)),
+            128: (8, 100, 300, (0, 1, 12)), 256: (6, 60, 200, (0, 1, 24)),
+            511: (4, 40, 150, (0, 1, 32)), 512: (6, 100, 700, (1, 4, 9)),
+            575: (4, 150, 400, (1, 4, 9)), 600: (3, 30, 90, (1, 8, 9)),
+            1100: (4, 300, 700, (1, 8, 9)), 1500: (3, 200, 600, (1, 8, 17)),
+            2200: (3, 40, 600, (1, 16, 17)), 8447: (3, 10, 90, (1, 16, 33)),
+            9000: (2, 10, 40, (2, 1024, 18)),
+            16500: (2, 10, 24, (2, 1024, 33))}
+
+
+def _k9_crossings(rng, k, lanes):
+    """Two jobs whose path leaves the main diagonal (lane k + 1) along a row
+    (text chars inserted) and down a column (pattern chars inserted) across
+    the nearest boundary between two warps of ``lanes`` lanes each: past it
+    a lane's left term comes from the warps before it, and before it its
+    "up" from the next warp. The inserted chars are N, which match nothing
+    in the ACGT rest, so that path is the only one of least cost, and a
+    cell on it one too high changes the result."""
+    x = _seq(rng, 60)
+    right = (k + 1) // lanes * lanes + lanes - (k + 1) + 4
+    down = (k + 1) % lanes + 4
+    return [(x, x[:30] + "N" * right + x[30:], 0, 0, 0, 0),
+            (x[:30] + "N" * down + x[30:], x, 0, 0, 0, 0)]
 
 
 @pytest.mark.parametrize("k", list(K9_CASES))
 def test_k9_cuda_source_emulated_match_plain(k9_emulated, k):
-    """K9 as written for the card, on the emulated warps and blocks: equal
-    to the plain version on every job (exact, INF included), with rows of
-    different lengths in one launch; and a launch of one job."""
+    """K9 as written for the card, on the emulated warps and blocks (a
+    block's warps together, so the P-warp kernel's slots are shared as on
+    the card): k takes the instance its case names, and the kernel equals
+    the plain version on every job (exact, INF included), with jobs of
+    different m, n and frees in one launch, on P warps also paths that
+    cross between warps along a row and down a column; and a launch of one
+    job."""
     rng = random.Random(9000 + k)
-    count, lo, hi = K9_CASES[k]
+    count, lo, hi, shape = K9_CASES[k]
+    got_shape = np.zeros(3, dtype=np.int32)
+    assert k9_emulated.otter_edit_banded_ends_free_shape(
+        k, got_shape.ctypes.data) == 0
+    assert tuple(got_shape) == shape
     jobs = k9_jobs(rng, k, count, lo, hi)
+    if shape[0] == 1:
+        jobs += _k9_crossings(rng, k, 32 * shape[2])
     got, want = _k9_run(k9_emulated, jobs, k)
     assert np.array_equal(got, want)
     assert (want < K7.INF).any()
     got1, want1 = _k9_run(k9_emulated, jobs[:1], k)
     assert np.array_equal(got1, want1)
+
+
+# one k of each P-warp instance: (4, 9), (8, 9), (8, 17), (16, 17), (16, 33)
+K9_WARPS_STAGGERED = (512, 1100, 1500, 2200, 8447)
+
+
+@pytest.mark.parametrize("stagger", [1, -1], ids=["first", "last"])
+@pytest.mark.parametrize("k", K9_WARPS_STAGGERED)
+def test_k9_warps_emulated_staggered(k9_emulated, k, stagger):
+    """K9's P-warp kernel with a block's warps run one at a time between
+    barriers, from the first warp or from the last: each warp writes the
+    next row's slots before the warps after it read this row's (the
+    exclusive prefix from the warps before, the "up" from the warp after),
+    so a slot that is not double-buffered by row parity is read stale, one
+    too high on the crossing paths. Exact against the plain version, on
+    the paths that cross between warps along a row and down a column (each
+    a result that a stale slot changes)."""
+    jobs = _k9_crossings(random.Random(9100 + k), k, 32 * K9_CASES[k][3][2])
+    k9_emulated.emu_set_stagger(stagger)
+    try:
+        got, want = _k9_run(k9_emulated, jobs, k)
+    finally:
+        k9_emulated.emu_set_stagger(0)
+    assert np.array_equal(got, want)
+    assert (want < K7.INF).any()
 
 
 def _k2_jobs(rng, G, q):

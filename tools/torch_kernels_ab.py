@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K7, K2, K3, K4 and K8 kernels of one checkout on one
-CUDA card.
+"""Time the port's K7, K2, K3, K4, K8 and K9 kernels of one checkout on
+one CUDA card.
 
     python3 tools/torch_kernels_ab.py ROOT [NAME [KERNELS]]
 
@@ -31,7 +31,17 @@ one JSON line per set with its mean kernel time and a hash of its result
   (hifi-tr-1.5k's batch of 32 regions x 4,950 values, the refscale region
   1 x 19,900, the largest batch 256 x 19,900) over the 401-cell grid, the
   hash over (m, s); where the checkout's wrapper takes ``warps``, also at
-  every W and cells a thread C, with the launch its rule picks.
+  every W and cells a thread C, with the launch its rule picks;
+* K9 (``edit_banded_ends_free``) on jobs shaped like the route-coverage
+  cell's passes (a 1.5-1.8 kb read with N bases against one 200-450 bp
+  shorter, the pattern's end free past the difference; ``chip_smoke.py``'s
+  ``reassignment_shaped_jobs``) at k = 512: 64 jobs (``chip_smoke.py``'s
+  timing set) and 10 (the cell's largest pass); and 2 two-sided jobs of
+  10-10.4 kb reads (``chip_smoke.py``'s ``ends_free_jobs``) at k = 1023,
+  2047, 4095 and 8191 (with k = 512, every P-warp instance); with the
+  kernel and instance each k takes where the checkout has
+  ``ends_free_shape``. The jobs come from the generators of the
+  ``chip_smoke.py`` beside this tool, whichever tree is timed.
 
 Inputs come from fixed seeds, so equal hashes mean equal results. Needs a
 card; nothing is written.
@@ -40,6 +50,7 @@ card; nothing is written.
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import inspect
 import json
 import os
@@ -72,6 +83,29 @@ def with_n(rs, s: str, k: int) -> str:
 # K8's sets, as chip_smoke.py's KDE_SETS: (name, regions, values a region)
 KDE_SETS = (("hifi-tr-1.5k batch", 32, 4950), ("refscale region", 1, 19900),
             ("largest batch", 256, 19900))
+
+
+def smoke_jobs():
+    """chip_smoke.py of this tool's own checkout, for its K9 job generators,
+    so that every tree timed gets the same jobs."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k9_sets():
+    """(name, jobs, k) of K9's sets, from fixed seeds."""
+    cs = smoke_jobs()
+    for n_jobs in (64, 10):
+        jobs = cs.reassignment_shaped_jobs(np.random.default_rng(512), n_jobs)
+        yield f"K9 k 512, {n_jobs} reassignment-shaped jobs", jobs, 512
+    for k in (1023, 2047, 4095, 8191):
+        jobs = cs.ends_free_jobs(np.random.default_rng(k), 2, 10000, 10400,
+                                 min(k - 16, 5000))
+        yield f"K9 k {k}, 2 two-sided jobs of 10 kb", jobs, k
 
 
 def kde_sets(torch, dev, reps_for):
@@ -182,6 +216,15 @@ def main() -> int:
             a = [int32_tensor(x, dev) for x in K7.pack_banded(pairs, k)]
             ms, out = time_ms(lambda: K7.edit_banded(*a, k), reps)
             emit(f"K7 k {k}, {n_pairs} pairs of {lo}-{hi}", ms, out)
+
+    if wanted("K9"):
+        for what, jobs, k in k9_sets():
+            a = [int32_tensor(x, dev)
+                 for x in K7.pack_ends_free(jobs, range(len(jobs)), k)]
+            kw = ({"shape": K7.ends_free_shape(k)}
+                  if hasattr(K7, "ends_free_shape") else {})
+            ms, out = time_ms(lambda: K7.edit_banded_ends_free(*a, k), 5)
+            emit(what, ms, out, **kw)
 
     if wanted("K2"):
         for n_jobs in (300, 1035, 16384):
