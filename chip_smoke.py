@@ -85,12 +85,30 @@ exits non-zero:
    byte-identical to phase 6's) and compare (TSV byte-identical to phase
    6's), with walls, each shard's pair and job counts and the kernel
    launches; then the route-coverage cell once more with K9's inputs
-   recorded, and K9 and its plain version timed on its largest pass.
+   recorded, and K9 and its plain version timed on its largest pass;
+9. the JAX package's opt-in device paths, each end to end on the card with
+   the opt-in kernels' counts zeroed just before and read just after, its
+   output byte-identical to the default route's (phases 5 and 6), its
+   kernel launched: hifi-tr-1.5k and the refscale region with
+   ``OTTER_TPU_POA_DEVICE=1`` (K12; walls beside phase 5's), genotype64
+   and genotype500 with ``OTTER_TPU_KMER_DEVICE=1`` (K10), genotype64 with
+   ``OTTER_TPU_NATIVE_HCLUST=0 OTTER_TPU_HCLUST_DEVICE=1`` (its tie-full
+   matrices: K11's launches and the guard's declines printed) and a
+   16-sample cohort of 8 VNTR loci (a length allele a haplotype: tie-free
+   length matrices, on which K11 must launch), hifi-tr-1.5k in mesh mode
+   on two shards of card 0 with ``OTTER_TPU_POA_DEVICE=1`` (K12 on each
+   shard); then each kernel exact against its plain version and timed:
+   K10 on the two cohorts' allele batches (k = 3) and at k = 8 (the
+   device-memory histogram), with ``torch.bincount`` of the window keys as
+   its library call; K11 on seeded tie-free matrices at n = 129 and 1,001,
+   partitions equal to the native NN-chain's at three cuts; K12 on the
+   graphs of the hifi-tr-1.5k and refscale runs.
 
 The line before the last is a JSON object with each kernel's launches in
-phase 5 (K9's in phase 8, its only path), its largest disagreement with its
-plain version, its times and its bound; the last line is ``{"ok": true, "device": {...}}``. Every input is
-made from a seed; nothing is read from the network.
+phase 5 (K9's in phase 8, K10-K12's in phase 9: their only paths), its
+largest disagreement with its plain version, its times and its bound; the
+last line is ``{"ok": true, "device": {...}}``. Every input is made from
+a seed; nothing is read from the network.
 
     python3 chip_smoke.py --profile
 
@@ -105,7 +123,12 @@ int32 rate (132 SMs x 64 lanes x the SM clock ``nvidia-smi`` reports as
 counted from the sources; phase 2 prints the compiled SASS counts beside
 them. K8's operations are its exps over the MUFU rate (132 x 16 a clock)
 or its ``KDE_F32_OPS`` f32 operations a (cell, value) over the f32 rate
-(132 x 128 a clock), whichever is longer.
+(132 x 128 a clock), whichever is longer. K10's are 3 k + 4 int32
+operations a window; K11's 4 f32 operations an active row a step (its
+pass over the rows, and the merged row's multiply, fma and division);
+K12's 2 f32 operations an edge (the add and the compare). K11 and K12 are
+chains of dependent steps (n - 1 merges; a graph's levels), so their
+lines give the steps beside the share.
 """
 
 from __future__ import annotations
@@ -145,6 +168,12 @@ KERNELS = {
                    "otter_tpu/parallel/mesh.py:111 (jnp)"),
     "edit_banded_ends_free": ("otter_tpu_torch/csrc/edit_banded.cu",
                               "otter_tpu/kernels/edit_pallas.py:127 (jnp)"),
+    "kmer_counts": ("otter_tpu_torch/csrc/kmer_counts.cu",
+                    "otter_tpu/seqs/kmer.py:128 (jnp)"),
+    "linkage": ("otter_tpu_torch/csrc/linkage.cu",
+                "otter_tpu/ops/hclust_device.py:31 (jnp)"),
+    "poa_heaviest": ("otter_tpu_torch/csrc/poa_heaviest.cu",
+                     "otter_tpu/ops/poa_device.py:106 (jnp)"),
 }
 
 
@@ -1822,15 +1851,15 @@ def wgat_entry(tmp: str) -> None:
 
 
 def phase_entry_points(tmp: str):
-    """Returns genotype64's cohort and VCF (genotype_cohort), and compare's
-    inputs and card TSV (compare_entry)."""
+    """Returns genotype64's and genotype500's cohorts and VCFs
+    (genotype_cohort), and compare's inputs and card TSV (compare_entry)."""
     log("== phase 6: the other entry points")
     g64 = genotype_cohort(tmp, "genotype64", 64, 32, 5)
-    genotype_cohort(tmp, "genotype500", 500, 8, 23)
+    g500 = genotype_cohort(tmp, "genotype500", 500, 8, 23)
     cmp = compare_entry(tmp)
     vcf2mat_entry(g64["vcf"], g64["bed"])
     wgat_entry(tmp)
-    return g64, cmp
+    return g64, g500, cmp
 
 
 # ---------------------------------------------------------------------------
@@ -2174,6 +2203,347 @@ def phase_mesh(dev, fixtures: list, runs: dict, g64: dict, cmp: dict
     return {"edit_banded_ends_free": k9}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the opt-in device paths (K10-K12)
+# ---------------------------------------------------------------------------
+
+# the kernels of the JAX package's opt-in device paths: each launches only
+# with its setting, so only in phase 9
+OPT_IN_KERNELS = ("kmer_counts", "linkage", "poa_heaviest")
+# K10's set with the device-memory histogram (4^8 + 1 counts an allele)
+K10_GLOBAL_K = 8
+
+
+def opt_in_wrappers() -> dict:
+    """Kernel name -> the wrapper whose ``launches`` counts its launches."""
+    from otter_tpu_torch.kernels import kmer_counts, linkage, poa_heaviest
+
+    return {"kmer_counts": kmer_counts.kmer_counts_cuda,
+            "linkage": linkage.linkage_cuda,
+            "poa_heaviest": poa_heaviest.poa_heaviest_cuda}
+
+
+class Settings:
+    """Environment settings for a block, restored after it."""
+
+    def __init__(self, **env):
+        self.env = env
+        self.saved = {}
+
+    def __enter__(self):
+        for k, v in self.env.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class Recorder:
+    """Replaces ``module.name`` for a block with a function that records
+    its arguments (in ``calls``) and then calls the original."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.calls = []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def record(*args):
+            self.calls.append(args)
+            return self.real(*args)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def opt_in_run(what: str, fn, want: str, kernel: str, **env):
+    """``fn()`` (the entry point's output) with the settings ``env``, the
+    opt-in kernels' counts zeroed just before and read just after:
+    byte-identical to ``want`` and ``kernel`` launched. Returns (wall,
+    launches)."""
+    import torch
+
+    wrappers = opt_in_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with Settings(**env):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {k: w.launches for k, w in wrappers.items()}
+    log(f"{what}: wall {wall:.3f} s, identical: {got == want}; launches "
+        f"{json.dumps(launched)}")
+    check(got == want, f"{what}: the output differs")
+    check(launched[kernel] > 0, f"{what}: {kernel} did not launch")
+    return wall, launched
+
+
+def opt_in_entry_points(tmp: str, fixtures: list, runs: dict, g64: dict,
+                        g500: dict, dev):
+    """Phase 9 (b): each opt-in path end to end on the card, byte-identical
+    to the default path's output; returns the launches of each path's runs
+    and the inputs its kernel took (K10's batches, K12's graphs)."""
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.ops import poa_device
+    from otter_tpu_torch.kernels import kmer_counts as K10
+    from otter_tpu_torch.utils import metrics
+    from otter_tpu_torch.utils.synth import cohort_fixture
+
+    launches = dict.fromkeys(OPT_IN_KERNELS, 0)
+    graphs = {}
+    hifi, refscale = CELLS[0][0], CELLS[3][0]
+    for i, name in ((0, hifi), (3, refscale)):
+        with Recorder(poa_device, "poa_heaviest") as rec:
+            wall, got = opt_in_run(
+                f"{name}, OTTER_TPU_POA_DEVICE=1",
+                lambda: run(*fixtures[i], TorchDistBackend("cuda")),
+                runs[name][1], "poa_heaviest", OTTER_TPU_POA_DEVICE="1")
+        launches["poa_heaviest"] += got["poa_heaviest"]
+        graphs[name] = rec.calls[0][0]
+        log(f"{name}: wall {wall:.3f} s with the Python graph build and "
+            f"K12, {runs[name][2]:.3f} s on the default route (native "
+            f"PPOA, phase 5); {graphs[name].meta.shape[0]} graphs, up to "
+            f"{graphs[name].max_nodes} nodes and {graphs[name].max_depth + 1}"
+            " levels")
+    batches = {}
+    for name, g in (("genotype64", g64), ("genotype500", g500)):
+        with Recorder(K10, "kmer_counts") as rec:
+            _wall, got = opt_in_run(
+                f"{name}, OTTER_TPU_KMER_DEVICE=1",
+                lambda: genotype_text(g["bam"], g["bed"], g["fa"])[1],
+                g["text"], "kmer_counts", OTTER_TPU_KMER_DEVICE="1")
+        launches["kmer_counts"] += got["kmer_counts"]
+        batches[name] = rec.calls[0]
+    # with the native NN-chain batch on (the default) genotype never
+    # reaches the per-matrix hclust route, so it is off here, as in the
+    # JAX package; cohort matrices are full of ties, which the guard
+    # declines: genotype64 may launch no K11 at all
+    metrics.reset()
+    with Settings(OTTER_TPU_NATIVE_HCLUST="0", OTTER_TPU_HCLUST_DEVICE="1"):
+        wrapper = opt_in_wrappers()["linkage"]
+        wrapper.launches = 0
+        text = genotype_text(g64["bam"], g64["bed"], g64["fa"])[1]
+    snap = metrics.snapshot()
+    log(f"genotype64, OTTER_TPU_NATIVE_HCLUST=0 OTTER_TPU_HCLUST_DEVICE=1: "
+        f"identical: {text == g64['text']}; K11 launches {wrapper.launches},"
+        f" matrices on K11 {int(snap.get('count.hclust_device', 0))}, "
+        f"declined by the exactness guards "
+        f"{int(snap.get('count.hclust_device_declined', 0))}")
+    check(text == g64["text"], "genotype64 with K11's route: VCF differs")
+    # a VNTR locus with a length allele a haplotype: tie-free length
+    # matrices, which K11 serves
+    d = os.path.join(tmp, "vntr16")
+    os.makedirs(d)
+    vbam, vbed, vfa = cohort_fixture(d, 16, 8, 41, vntr=True)
+    want = genotype_text(vbam, vbed, vfa)[1]
+    metrics.reset()
+    _wall, got = opt_in_run(
+        "vntr16 (16 samples x 8 VNTR regions), OTTER_TPU_NATIVE_HCLUST=0 "
+        "OTTER_TPU_HCLUST_DEVICE=1",
+        lambda: genotype_text(vbam, vbed, vfa)[1], want, "linkage",
+        OTTER_TPU_NATIVE_HCLUST="0", OTTER_TPU_HCLUST_DEVICE="1")
+    snap = metrics.snapshot()
+    log(f"vntr16: matrices on K11 {int(snap.get('count.hclust_device', 0))},"
+        f" declined {int(snap.get('count.hclust_device_declined', 0))}")
+    launches["linkage"] += got["linkage"]
+    # mesh mode: the graph axis split over two shards of card 0
+    with Recorder(poa_device, "poa_heaviest") as rec:
+        _wall, got = opt_in_run(
+            f"{hifi}, mesh of two shards of card 0, OTTER_TPU_POA_DEVICE=1",
+            lambda: run(*fixtures[0], TorchDistBackend("mesh",
+                                                       mesh=(dev, dev)),
+                        device="mesh"),
+            runs[hifi][1], "poa_heaviest", OTTER_TPU_POA_DEVICE="1")
+    shards = [b.meta.shape[0] for (b,) in rec.calls]
+    log(f"{hifi}, mesh: K12 launches {got['poa_heaviest']}, graphs a launch "
+        f"{shards}")
+    check(len(shards) == 2 and min(shards) > 0,
+          "mesh mode: K12 did not launch on each shard")
+    launches["poa_heaviest"] += got["poa_heaviest"]
+    return launches, batches, graphs
+
+
+def kernel_k10(batches: dict) -> dict:
+    """K10 against its plain version on the card on genotype64's and
+    genotype500's batches (k = 3) and genotype64's first 256 alleles at
+    k = 8 (device-memory histograms); times, bound, and torch.bincount of
+    the window keys (the library call). Returns the fields of
+    genotype500's batch."""
+    import torch
+
+    from otter_tpu_torch.kernels import kmer_counts as K10
+
+    out = None
+    sets = [(n, b[0], b[1], b[2]) for n, b in batches.items()]
+    seqs, offsets = batches["genotype64"][:2]  # its first 256 alleles
+    sets.append(("genotype64's first 256 alleles",
+                 seqs[: int(offsets[256])].contiguous(),
+                 offsets[:257].contiguous(), K10_GLOBAL_K))
+    for name, seqs, offsets, k in sets:
+        n = offsets.shape[0] - 1
+        got = K10.kmer_counts_cuda(seqs, offsets, k)
+        want = K10.kmer_counts_torch(seqs, offsets, k)
+        err = int((got - want).abs().max())
+        check(err == 0, f"K10 disagrees with its plain version ({name}, "
+              f"k = {k})")
+        keys = K10.window_keys(seqs, offsets, k)
+        width = 4 ** k + 1
+        ms = time_ms(lambda: K10.kmer_counts_cuda(seqs, offsets, k), 20)
+        plain_ms = time_ms(lambda: K10.kmer_counts_torch(seqs, offsets, k),
+                           5)
+        lib_ms = time_ms(lambda: torch.bincount(keys, minlength=n * width),
+                         20)
+        windows = int(keys.shape[0])
+        moved = nbytes(seqs, offsets) + 4 * n * width
+        t_ops = windows * (3 * k + 4) / (INT32_LANES * CARD["sm_hz"]) * 1e3
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                                "bytes")
+        log(f"K10 kmer_counts, {name} ({n} alleles, {seqs.shape[0]} bytes, "
+            f"{windows} windows, k = {k}): kernel == plain: True, max |diff| "
+            f"{err} (tolerance 0); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, torch.bincount of the keys {lib_ms:.4f} ms; bound "
+            f"{b:.5f} ms by {by}, {100 * b / ms:.3f}% of it")
+        if name == "genotype500":
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+    return out
+
+
+def _canon(labels) -> list:
+    seen = {}
+    return [seen.setdefault(int(l), len(seen)) for l in labels]
+
+
+def kernel_k11(dev) -> dict:
+    """K11 against its plain version on the card on seeded tie-free
+    matrices at n = 129 and 1,001 (genotype64's and genotype500's cohort
+    sizes): merges and heights bit for bit, and partitions equal to the
+    native NN-chain's at three cuts; times and bound. Returns the fields of
+    n = 1,001."""
+    import torch
+
+    from otter_tpu_torch.kernels import linkage as K11
+    from otter_tpu_torch.native import hclust_average_native
+    from otter_tpu_torch.ops.hclust import cutree_cdist
+    from otter_tpu_torch.ops.hclust_device import to_r_convention
+
+    out = None
+    rs = np.random.default_rng(11)
+    for n in (129, 1001):
+        m = n * (n - 1) // 2
+        cond = (rs.permutation(m) + 1.0) / (m + 1.0)  # distinct in f32
+        sq = np.zeros((n, n), dtype=np.float32)
+        sq[np.triu_indices(n, 1)] = cond
+        sq += sq.T
+        D = torch.from_numpy(sq)[None].to(dev)
+        recs, hs = K11.linkage_cuda(D)
+        plain_ms, (recs_p, hs_p) = time_once(lambda: K11.linkage_torch(D))
+        same = bool(torch.equal(recs, recs_p)) and bool(torch.equal(
+            hs.view(torch.int32), hs_p.view(torch.int32)))
+        err = float((hs - hs_p).abs().max())
+        merge, height = to_r_convention(recs[0].cpu().numpy(),
+                                        hs[0].cpu().numpy(), n)
+        mh, hh = hclust_average_native(cond, n)
+        cuts = []
+        for q in (0.25, 0.5, 0.75):  # the widest gap near each quantile
+            lo = int(q * (n - 2))
+            win = range(max(0, lo - 8), min(n - 2, lo + 8))
+            g = max(win, key=lambda k: hh[k + 1] - hh[k])
+            cuts.append((hh[g] + hh[g + 1]) / 2)
+        parts = all(_canon(cutree_cdist(n, merge, height, c)) ==
+                    _canon(cutree_cdist(n, mh, hh, c)) for c in cuts)
+        check(same and parts, f"K11 at n = {n}: kernel == plain {same}, "
+              f"partitions equal to the native NN-chain's {parts}")
+        ms = time_ms(lambda: K11.linkage_cuda(D), 5)
+        # operations: per step the pair's pass over the active rows and the
+        # merged row (mul, fma, div a column); bytes: D once, the records
+        steps = n - 1
+        ops = sum(4 * (n - k) for k in range(steps))
+        t_ops = ops / (F32_LANES * CARD["sm_hz"]) * 1e3
+        t_bytes = (4 * n * n + 12 * steps) / HBM_BYTES_PER_S * 1e3
+        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                                "bytes")
+        shown = [round(float(c), 6) for c in cuts]
+        log(f"K11 linkage, n = {n} ({steps} dependent steps, D in "
+            f"{'shared' if n <= 220 else 'device'} memory): kernel == plain "
+            f"{same}, max |diff| {err} (tolerance 0); partitions equal to "
+            f"the native NN-chain's at cuts {shown}: {parts}; kernel "
+            f"{ms:.4f} ms ({1e3 * ms / steps:.3f} us a "
+            f"step), plain {plain_ms:.1f} ms; bound {b:.5f} ms by {by}, "
+            f"{100 * b / ms:.4f}% of it; library call: none")
+        out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b, "bound_by": by, "library_ms": None}
+    return out
+
+
+def kernel_k12(graphs: dict) -> dict:
+    """K12 against its plain version on the card on the graphs the
+    hifi-tr-1.5k and refscale runs gave it: h bit for bit, min_eid equal;
+    times and bound. Returns the fields of hifi-tr-1.5k's batch."""
+    import torch
+
+    from otter_tpu_torch.kernels import poa_heaviest as K12
+
+    out = None
+    for name, batch in graphs.items():
+        h, me = K12.poa_heaviest_cuda(batch)
+        plain_ms, (h_p, me_p) = time_once(
+            lambda: K12.poa_heaviest_torch(batch))
+        same = bool(torch.equal(h.view(torch.int32), h_p.view(torch.int32))
+                    and torch.equal(me, me_p))
+        err = float(max((h - h_p).abs().max(), (me - me_p).abs().max()))
+        check(same, f"K12 disagrees with its plain version ({name})")
+        ms = time_ms(lambda: K12.poa_heaviest_cuda(batch), 5)
+        n_edges = int(batch.e_src.shape[0])
+        moved = nbytes(*batch[:7]) + 8 * batch.node_of.shape[0]
+        t_ops = 2 * n_edges / (F32_LANES * CARD["sm_hz"]) * 1e3
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                                "bytes")
+        levels = batch.max_depth + 1
+        log(f"K12 poa_heaviest, {name} ({batch.meta.shape[0]} graphs, "
+            f"{batch.node_of.shape[0]} nodes, {n_edges} edges, up to "
+            f"{levels} levels, the longest chain of dependent steps): kernel "
+            f"== plain {same}, max |diff| {err} (tolerance 0); kernel "
+            f"{ms:.4f} ms ({1e3 * ms / levels:.3f} us a level), plain "
+            f"{plain_ms:.1f} ms; bound {b:.5f} ms by {by}, "
+            f"{100 * b / ms:.4f}% of it; library call: none")
+        if out is None:
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b, "bound_by": by, "library_ms": None}
+    return out
+
+
+def phase_device_paths(tmp: str, dev, fixtures: list, runs: dict, g64: dict,
+                       g500: dict):
+    """Phase 9: the JAX package's opt-in device paths (K10 k-mer counts,
+    K11 average linkage, K12 the POA heaviest-path DP) end to end, then
+    each kernel exact against its plain version on the inputs those runs
+    gave it, timed. Returns (launches, timings) by kernel name."""
+    log("== phase 9: the opt-in device paths")
+    t0 = time.perf_counter()
+    launches, batches, graphs = opt_in_entry_points(tmp, fixtures, runs,
+                                                    g64, g500, dev)
+    log(f"opt-in kernel launches on their paths: {json.dumps(launches)}")
+    timings = {"kmer_counts": kernel_k10(batches),
+               "linkage": kernel_k11(dev),
+               "poa_heaviest": kernel_k12(graphs)}
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    return launches, timings
+
+
 def phase_profile(tmp: str) -> None:
     """Cell hifi-tr-1.5k three times untraced, then once under
     torch.profiler: wall, device busy time (the union of kernel and copy
@@ -2255,12 +2625,17 @@ def main() -> int:
             done("phase 5")
             k2_small_launch(dev, cell["jobs_k2"])
             done("K2 at the cell's launch shape")
-            g64, cmp = phase_entry_points(tmp)
+            g64, g500, cmp = phase_entry_points(tmp)
             done("phase 6")
             phase_pools_processes(tmp, fixtures[0], hifi_text, g64)
             done("phase 7")
             launches.update(phase_mesh(dev, fixtures, runs, g64, cmp))
             done("phase 8")
+            opt_launches, opt_timings = phase_device_paths(
+                tmp, dev, fixtures, runs, g64, g500)
+            launches.update(opt_launches)
+            timings.update(opt_timings)
+            done("phase 9")
         finally:
             if oracle.poll() is None:
                 oracle.kill()

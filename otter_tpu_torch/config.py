@@ -15,11 +15,6 @@ from dataclasses import dataclass, field
 
 from .utils.timestamp import antimestamp
 
-# settings that select a device path of the JAX package (device POA, device
-# hclust, device k-mer counts) which the port does not have
-UNPORTED_SETTINGS = ("OTTER_TPU_POA_DEVICE", "OTTER_TPU_HCLUST_DEVICE",
-                     "OTTER_TPU_KMER_DEVICE")
-
 # settings with which the JAX package reroutes its consensus around its
 # accelerator's round trips (the host ladder instead of the traceback
 # kernel; band seeds on or off); the port's consensus always takes K5 with
@@ -30,13 +25,11 @@ FIXED_ROUTE_SETTINGS = (("OTTER_TPU_AFFINE_DEVICE", "0"),
 
 
 def check_settings() -> None:
-    """Raise for a setting that asks for a path the port does not have, so
+    """Raise for a setting that asks for a path the port does not take, so
     that no setting of the JAX package is silently ignored. Every entry
-    point that reads a setting (assemble, genotype, compare) calls this."""
-    for name in UNPORTED_SETTINGS:
-        if os.environ.get(name) == "1":
-            raise RuntimeError(f"{name}=1 selects a device path the PyTorch "
-                               "port does not have")
+    point that reads a setting (assemble, genotype, compare) calls this.
+    The JAX package's opt-in device paths (OTTER_TPU_KMER_DEVICE,
+    OTTER_TPU_HCLUST_DEVICE, OTTER_TPU_POA_DEVICE) run on K10-K12."""
     for name, value in FIXED_ROUTE_SETTINGS:
         if os.environ.get(name) == value:
             raise RuntimeError(f"{name}={value} reroutes the consensus; the "

@@ -141,6 +141,13 @@ def load() -> ctypes.CDLL:
                                                     _P]
             lib.otter_kde_scaled_geometry.restype = _I
             lib.otter_kde_scaled_geometry.argtypes = [_I, _I, _I, _I, _P]
+            lib.otter_kmer_counts.restype = _I
+            lib.otter_kmer_counts.argtypes = [_P, _P, _I, _I, _P, _P]
+            lib.otter_linkage.restype = _I
+            lib.otter_linkage.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+            lib.otter_poa_heaviest.restype = _I
+            lib.otter_poa_heaviest.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+                                               _I, _I, _P, _P, _P]
             lib.otter_cuda_error_string.restype = ctypes.c_char_p
             lib.otter_cuda_error_string.argtypes = [_I]
             _lib = lib

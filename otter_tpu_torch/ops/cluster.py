@@ -18,6 +18,7 @@ import numpy as np
 
 from ..seqs.kmer import Kusage, kusage_batch, seq2kcounts
 from ..seqs.model import AnAllele, AnRead
+from ..utils import metrics
 from .distmat import DistMatrix, triu_pair_indices
 from .hclust import cutree_cdist, cutree_k, hclust_average
 from .kde import kde_densities, kde_grid, kde_maximas
@@ -289,18 +290,63 @@ def length_dist(x: int, y: int) -> float:
     return dist / y if is_x_smallest else dist / x
 
 
-def _hclust_route(n: int, condensed: np.ndarray, cdist: float
-                  ) -> Tuple[np.ndarray, np.ndarray]:
+def _hclust_route(n: int, condensed: np.ndarray, cdist: float,
+                  device="cpu") -> Tuple[np.ndarray, np.ndarray]:
     """Average linkage for the cohort paths: native C++ NN-chain by
     default (exact f64 parity with the python oracle — same algorithm,
     same scan order, -ffp-contract=off so rounding matches numpy; see
     native/otter_native.cpp::hclust_one and test_hclust.py's randomized
-    tie-heavy parity sweep). OTTER_TPU_NATIVE_HCLUST=0 keeps the python
-    NN-chain.
+    tie-heavy parity sweep), K11 on ``device`` when provably safe.
 
-    The JAX package's device NN-chain (ops/hclust_device.py) is a later
-    slice of the port."""
-    return _hclust_fast(n, condensed)
+    Real cohort matrices are full of ties (cosine distances round to 3
+    decimals, length distances repeat), so the tie-free guard below
+    almost always declines — the native path is what actually serves the
+    n = 2*samples+1 cohort regime. OTTER_TPU_NATIVE_HCLUST=0 keeps the
+    python NN-chain.
+
+    The device formulation (ops/hclust_device.py, kernel K11) matches the
+    host NN-chain only on tie-free matrices, and it runs in float32, so it
+    is used only when the result is certain to be byte-identical to the
+    host cut:
+
+      * the condensed matrix has no duplicate values after float32 cast
+        (any float64-distinct pair that collides in f32 is a device tie);
+      * the realized merge heights come back strictly increasing (a
+        duplicate realized height means a derived-average collision the
+        input check cannot see);
+      * no merge height lands within ``tol`` of the cut threshold, where
+        tol covers worst-case f32 averaging drift (so the host's
+        ``height >= cdist`` comparisons cannot flip).
+
+    A matrix a guard declines takes the host NN-chain, so outputs are
+    byte-identical either way (counted: ``hclust_device``,
+    ``hclust_device_declined``). OTTER_TPU_HCLUST_DEVICE=0 disables, =1
+    forces the attempt regardless of size and device (K11's plain version
+    on the CPU); by default K11 is tried for n >= 64 when ``device`` is a
+    card, as the JAX package tries its device whenever JAX is live."""
+    import torch
+
+    env = os.environ.get("OTTER_TPU_HCLUST_DEVICE", "")
+    if n < 2 or env == "0":
+        return _hclust_fast(n, condensed)
+    if env != "1" and (n < 64 or torch.device(device).type != "cuda"):
+        return _hclust_fast(n, condensed)
+    v32 = np.asarray(condensed, dtype=np.float32)
+    if np.unique(v32).size != v32.size:
+        metrics.add("hclust_device_declined")
+        return _hclust_fast(n, condensed)
+    from .hclust_device import hclust_average_device
+
+    merge, height = hclust_average_device(
+        np.asarray(condensed, dtype=np.float64), n, device)
+    h = np.asarray(height, dtype=np.float64)
+    tol = max(1e-4, n * 1e-6) * max(1.0, abs(cdist))
+    if h.size and (np.any(np.diff(h) <= 0.0)
+                   or np.any(np.abs(h - cdist) <= tol)):
+        metrics.add("hclust_device_declined")
+        return _hclust_fast(n, condensed)
+    metrics.add("hclust_device")
+    return merge, h
 
 
 def _hclust_fast(n: int, condensed: np.ndarray
@@ -319,19 +365,20 @@ def _hclust_fast(n: int, condensed: np.ndarray
 
 def cluter_to_e(max_error: float, total_alleles: int,
                 distmatrix: DistMatrix,
-                dendro=None) -> List[List[int]]:
+                dendro=None, device="cpu") -> List[List[int]]:
     """hclust + cut at max_error -> clusters as index lists (:329-349).
 
     ``dendro``: optional precomputed (merge, height) — the batched cohort
     pipeline runs ONE threaded native NN-chain call for every region's
     matrices (native.hclust_average_native_batch) and hands each result
     in here; the native batch is parity-exact with the per-matrix route
-    (same C++ core), so output is unchanged."""
+    (same C++ core), so output is unchanged. ``device``: where
+    ``_hclust_route`` may run K11."""
     if dendro is not None:
         merge, height = dendro
     else:
         merge, height = _hclust_route(total_alleles, distmatrix.values,
-                                      max_error)
+                                      max_error, device)
     labels = np.asarray(
         cutree_cdist(total_alleles, merge, height, max_error), dtype=np.int64)
     # grouped build via stable argsort: cluster l = indices with label l in
@@ -364,11 +411,12 @@ def remap_cluster_indeces(distmatrix: DistMatrix, indeces: List[int],
 
 
 def anallele_cluster_length(max_error: float, alleles: List[AnAllele],
-                            indeces: List[int], distmatrix: DistMatrix
+                            indeces: List[int], distmatrix: DistMatrix,
+                            device="cpu"
                             ) -> Tuple[List[List[int]], List[int]]:
     """Length-based allele clustering (:367-382). The pairwise fill is
     vectorized — |x-y|/max(x,y) elementwise float64, the same two ops as
-    the scalar length_dist per pair."""
+    the scalar length_dist per pair. ``device``: the hclust route's."""
     n = len(indeces)
     lens = np.asarray([len(alleles[i].seq) for i in indeces],
                       dtype=np.float64)
@@ -376,25 +424,27 @@ def anallele_cluster_length(max_error: float, alleles: List[AnAllele],
     li, lj = lens[iu], lens[ju]
     mx = np.maximum(li, lj)
     distmatrix.values = np.abs(li - lj) / np.maximum(mx, 1.0)
-    clusters = cluter_to_e(max_error, n, distmatrix)
+    clusters = cluter_to_e(max_error, n, distmatrix, device=device)
     return remap_cluster_indeces(distmatrix, indeces, clusters)
 
 
 def generate_kusage(k: int, alleles: List[AnAllele],
-                    indeces: List[int]) -> List[Kusage]:
+                    indeces: List[int], device="cpu") -> List[Kusage]:
     """Batched counts + diversity (seqs/kmer.py::kusage_batch) —
     bit-identical to per-allele Kusage(seq2kcounts(...)) (parity-tested in
     tests/test_heuristics.py) at vector speed; seq2kcounts stays the
-    scalar oracle."""
-    return kusage_batch(k, [alleles[i].seq for i in indeces])
+    scalar oracle. ``device``: where OTTER_TPU_KMER_DEVICE=1 counts."""
+    return kusage_batch(k, [alleles[i].seq for i in indeces], device=device)
 
 
 def anallele_cluster_kusage(max_error: float, k: int, alleles: List[AnAllele],
-                            indeces: List[int], distmatrix: DistMatrix
+                            indeces: List[int], distmatrix: DistMatrix,
+                            device="cpu"
                             ) -> Tuple[List[Kusage], List[List[int]], List[int]]:
     """3-mer-usage cosine-dissimilarity clustering (:402-420), with the
-    reference's round-to-3-decimals and NaN->dist-1.0 handling."""
-    kusages = generate_kusage(k, alleles, indeces)
+    reference's round-to-3-decimals and NaN->dist-1.0 handling.
+    ``device``: the k-mer counts' and the hclust route's."""
+    kusages = generate_kusage(k, alleles, indeces, device)
     # vectorized cosine-dissimilarity matrix: one GEMM over the usage
     # vectors instead of n^2/2 python dot calls, certified against the
     # scalar-dot oracle (kusage_cosine_condensed)
@@ -406,7 +456,8 @@ def anallele_cluster_kusage(max_error: float, k: int, alleles: List[AnAllele],
         scaled = (dots / np.outer(norms, norms)) * 1000.0
     distmatrix.values = kusage_cosine_condensed(scaled, V, norms,
                                                 _ROUND_GUARD)
-    clusters = cluter_to_e(max_error, len(kusages), distmatrix)
+    clusters = cluter_to_e(max_error, len(kusages), distmatrix,
+                           device=device)
     out_clusters, reps = remap_cluster_indeces(distmatrix, indeces, clusters)
     return kusages, out_clusters, reps
 
@@ -539,8 +590,8 @@ def _cpp_round(x: float) -> float:
 def anallele_cluster(max_error_l: float, max_error_c: float,
                      alleles: List[AnAllele], genotypes: List[Genotype],
                      precomputed: Optional[dict] = None,
-                     hsd_indices: Optional[List[int]] = None
-                     ) -> Tuple[int, List[int]]:
+                     hsd_indices: Optional[List[int]] = None,
+                     device="cpu") -> Tuple[int, List[int]]:
     """Joint (length x kusage) allele clustering (:463-527).
 
     Returns (total final clusters, representative allele per cluster).
@@ -549,6 +600,8 @@ def anallele_cluster(max_error_l: float, max_error_c: float,
     ``kusages``; they must be byte-identical to what this function would
     compute (the device path certifies, models/genotype.py) — everything
     downstream (hclust, cutree, joint labels, medoids) is shared code.
+    ``device``: the card (or the CPU) of the opt-in device routes, K10's
+    k-mer counts and K11's linkage.
     """
     allele_indeces = list(range(len(alleles)))
     pre = precomputed or {}
@@ -558,12 +611,14 @@ def anallele_cluster(max_error_l: float, max_error_c: float,
         distmatrix_length.values = pre["length_values"]
         length_clusters = cluter_to_e(max_error_l, len(allele_indeces),
                                       distmatrix_length,
-                                      dendro=pre.get("length_dendro"))
+                                      dendro=pre.get("length_dendro"),
+                                      device=device)
         length_clusters, length_reps = remap_cluster_indeces(
             distmatrix_length, allele_indeces, length_clusters)
     else:
         length_clusters, length_reps = anallele_cluster_length(
-            max_error_l, alleles, allele_indeces, distmatrix_length)
+            max_error_l, alleles, allele_indeces, distmatrix_length,
+            device)
     if len(length_reps) != len(length_clusters):
         sys.stderr.write(
             f"[ERROR] unexpected number of representative alleles "
@@ -579,12 +634,14 @@ def anallele_cluster(max_error_l: float, max_error_c: float,
         kusages = pre["kusages"]
         kusage_clusters = cluter_to_e(max_error_c, len(allele_indeces),
                                       distmatrix_kusage,
-                                      dendro=pre.get("kusage_dendro"))
+                                      dendro=pre.get("kusage_dendro"),
+                                      device=device)
         kusage_clusters, kusage_reps = remap_cluster_indeces(
             distmatrix_kusage, allele_indeces, kusage_clusters)
     else:
         kusages, kusage_clusters, kusage_reps = anallele_cluster_kusage(
-            max_error_c, 3, alleles, allele_indeces, distmatrix_kusage)
+            max_error_c, 3, alleles, allele_indeces, distmatrix_kusage,
+            device)
     if len(kusage_reps) != len(kusage_clusters):
         sys.stderr.write(
             f"[ERROR] unexpected representative alleles "

@@ -271,7 +271,9 @@ def consensus_apply_batched(tasks: List["PoaTask"], engine=None) -> None:
     each member's band; the cigars come from the affine traceback kernel
     (kernels/affine_tb.py, K5), and the members it cannot prove optimal
     take the native band ladder (ops/align_batch.py), which computes the
-    same cigar. Without one, every member takes the ladder."""
+    same cigar. Without one, every member takes the ladder. The POAs then
+    take the native C++ PPOA, or with OTTER_TPU_POA_DEVICE=1 the Python
+    graph build and K12's heaviest-path DP on the engine's device."""
     from .align_batch import affine_cigars_multi
 
     flat: List[tuple] = []
@@ -300,6 +302,30 @@ def consensus_apply_batched(tasks: List["PoaTask"], engine=None) -> None:
     else:
         with metrics.phase("consensus_affine"):
             cigars = affine_cigars_multi(flat)
+    # device heaviest-path DP (ops/poa_device.py, K12): graphs build on the
+    # host, the consensus DP of the whole allele batch runs as one launch a
+    # device (the engine's card or mesh; K12's plain version on the CPU).
+    # Opt-in (OTTER_TPU_POA_DEVICE=1), as in the JAX package: the native C++
+    # batch PPOA below builds the graphs far faster than Python does. Output
+    # is byte-identical either way (parity-tested); a failure raises.
+    if tasks and os.environ.get("OTTER_TPU_POA_DEVICE", "") == "1":
+        from .poa_device import poa_consensus_device_batch
+
+        with metrics.phase("consensus_poa"):
+            poas = []
+            for task, s, n in spans:
+                poa = Ppoa(task.rep_read.seq)
+                for seq, cigar, sl, sr in task.resolved_members(
+                        cigars[s : s + n]):
+                    poa.insert_alignment(seq, cigar, sl, sr)
+                poa.adjust_weights(task.prune_c(), float(np.float32(0.3)))
+                poas.append(poa)
+            devices = (getattr(engine, "mesh", None)
+                       or getattr(engine, "device", None) or "cpu")
+            seqs = poa_consensus_device_batch(poas, devices)
+        for (task, _s, _n), seq in zip(spans, seqs):
+            task.allele.seq = seq if seq else "N"
+        return
     # native C++ PPOA (byte-identical to the python Ppoa oracle) on the
     # device paths; python remains the host-mode parity oracle
     use_native = (engine is not None

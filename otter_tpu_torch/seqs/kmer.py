@@ -125,6 +125,33 @@ def seq2kcounts_np(k: int, seqs: List[str]) -> np.ndarray:
     return counts
 
 
+def kcounts_device(k: int, seqs: List[str], device="cuda") -> np.ndarray:
+    """K-mer counts of an allele batch by kernel K10
+    (``kernels/kmer_counts.py``) on ``device``: the card's kernel, or its
+    plain version on the CPU. (n, 4^k + 1) float64, bit-identical to
+    ``seq2kcounts`` per allele (integer counts). The port of the JAX
+    package's ``kcounts_device``; OTTER_TPU_KMER_DEVICE=1 routes
+    ``_batch_counts`` through it."""
+    import torch
+
+    from ..kernels.kmer_counts import kmer_counts
+
+    n = len(seqs)
+    width = int(4 ** k) + 1
+    if n == 0:
+        return np.zeros((0, width), dtype=np.float64)
+    blob = "".join(seqs).encode("latin-1")
+    lens = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=n)
+    if len(blob) >= 2 ** 31:
+        raise ValueError("k-mer batch over 2^31 bytes")
+    offsets = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    data = np.frombuffer(blob, dtype=np.uint8).copy()
+    counts = kmer_counts(torch.from_numpy(data).to(device),
+                         torch.from_numpy(offsets).to(device), k)
+    return counts.cpu().numpy().astype(np.float64)
+
+
 def _batch_vecs_vnorms(counts: np.ndarray):
     """(vecs, vnorms) from batch counts — the ONE implementation of the
     normalized-usage formula (same elementwise f64 ops / row reductions as
@@ -140,15 +167,18 @@ def _batch_vecs_vnorms(counts: np.ndarray):
     return vecs, vnorms
 
 
-def _batch_counts(k: int, seqs: List[str]) -> np.ndarray:
-    """Batch k-mer counts: native C++ -> numpy oracle; both bit-identical
-    integer counts in f64."""
+def _batch_counts(k: int, seqs: List[str], device="cpu") -> np.ndarray:
+    """Batch k-mer counts: K10 on ``device`` with OTTER_TPU_KMER_DEVICE=1
+    (the card's kernel, or its plain version on the CPU; a failure
+    raises), else native C++ -> numpy oracle; all bit-identical integer
+    counts in f64."""
     import os
 
+    if os.environ.get("OTTER_TPU_KMER_DEVICE", "") == "1":
+        return kcounts_device(k, seqs, device)
     counts = None
     # native C++ counting kernel (bit-identical integer counts in f64);
-    # OTTER_TPU_NATIVE_KMER=0 disables. The JAX package's device count
-    # (kcounts_device) is a later slice of the port.
+    # OTTER_TPU_NATIVE_KMER=0 disables
     if os.environ.get("OTTER_TPU_NATIVE_KMER", "1") == "1":
         try:
             from ..native import kcounts_native
@@ -195,12 +225,13 @@ class LazyKusages:
             yield self[j]
 
 
-def kusage_batch_arrays(k: int, seqs: List[str], lazy: bool = False):
+def kusage_batch_arrays(k: int, seqs: List[str], lazy: bool = False,
+                        device="cpu"):
     """(kus, vecs (N, 4^k+1) f64, vnorms (N,) f64) — kusage_batch plus the
     underlying batch arrays, so cohort callers can slice views instead of
     re-stacking 4^k-wide rows object by object. ``lazy=True`` returns a
     LazyKusages view in place of the object list (objects materialize only
-    where read)."""
+    where read). ``device``: where OTTER_TPU_KMER_DEVICE=1 counts."""
     width = int(4 ** k) + 1
     if not seqs:
         empty_v = np.zeros((0, width))
@@ -208,9 +239,9 @@ def kusage_batch_arrays(k: int, seqs: List[str], lazy: bool = False):
         return (LazyKusages(empty_v, empty_n) if lazy else []), \
             empty_v, empty_n
     if lazy:
-        vecs, vnorms = _batch_vecs_vnorms(_batch_counts(k, seqs))
+        vecs, vnorms = _batch_vecs_vnorms(_batch_counts(k, seqs, device))
         return LazyKusages(vecs, vnorms), vecs, vnorms
-    kus = kusage_batch(k, seqs, eager_hsdiv=False)
+    kus = kusage_batch(k, seqs, eager_hsdiv=False, device=device)
     vecs = kus[0].vec.base if kus[0].vec.base is not None else None
     if vecs is None or vecs.shape[0] != len(kus):
         vecs = np.stack([ku.vec for ku in kus])
@@ -218,8 +249,8 @@ def kusage_batch_arrays(k: int, seqs: List[str], lazy: bool = False):
     return kus, vecs, vnorms
 
 
-def kusage_batch(k: int, seqs: List[str],
-                 eager_hsdiv: bool = True) -> List[Kusage]:
+def kusage_batch(k: int, seqs: List[str], eager_hsdiv: bool = True,
+                 device="cpu") -> List[Kusage]:
     """Kusage objects for an allele batch with vectorized counts and
     vectorized (but bit-identical) Hill-Shannon diversity.
 
@@ -233,8 +264,10 @@ def kusage_batch(k: int, seqs: List[str],
     ``eager_hsdiv=False`` skips the batched diversity precompute (a global
     np.unique over every usage value); hsdiv() then computes scalar
     (bit-identical) on demand — the cohort genotype path only ever reads
-    it for representative alleles."""
-    counts = _batch_counts(k, seqs) if seqs else seq2kcounts_np(k, seqs)
+    it for representative alleles. ``device``: where
+    OTTER_TPU_KMER_DEVICE=1 counts."""
+    counts = (_batch_counts(k, seqs, device) if seqs
+              else seq2kcounts_np(k, seqs))
     # batched Kusage construction: vec = counts/total and
     # vnorm = sqrt(sum(vec*vec)) computed array-wise are elementwise /
     # row-reduction identical to the per-allele scalar __init__ (same

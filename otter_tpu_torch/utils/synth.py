@@ -173,13 +173,16 @@ def tandem_repeat_loci(tmp: str, n_regions: int, cov: int, err: float,
 
 
 def cohort_fixture(tmp: str, n_samples: int = 64, n_regions: int = 32,
-                   seed: int = 5) -> Tuple[str, str, str]:
+                   seed: int = 5, vntr: bool = False) -> Tuple[str, str, str]:
     """A merged otter cohort BAM (one allele record per sample haplotype,
     with its ta/RG/tc/ac/sc/se/ic tags and one @RG line per sample), its BED
     and the reference FASTA under ``tmp``: the joint-genotyping input of
     genotype.cpp:173-192. Odd samples are het for a CAG expansion of 10-29
     units of a 120 bp region, even ones hom-ref; each allele carries 0-2
-    substitutions. Returns (bam, bed, fasta)."""
+    substitutions. ``vntr``: instead, every haplotype carries its own
+    random insert of 1-2,999 bp (a locus with as many allele lengths as
+    haplotypes, so its length distances are nearly all distinct). Returns
+    (bam, bed, fasta)."""
     rng = random.Random(seed)
     span = 2500
     ref_len = 1000 + n_regions * span + 2000
@@ -195,8 +198,13 @@ def cohort_fixture(tmp: str, n_samples: int = 64, n_regions: int = 32,
             base = ref[start:end]
             exp = base + "CAG" * rng.randrange(10, 30)
             for s in range(n_samples):
-                for hap, seq in enumerate((base, exp) if s % 2 else
-                                          (base, base)):
+                if vntr:
+                    haps = tuple(base + "".join(rng.choice("ACGT") for _ in
+                                                range(rng.randrange(1, 3000)))
+                                 for _ in range(2))
+                else:
+                    haps = (base, exp) if s % 2 else (base, base)
+                for hap, seq in enumerate(haps):
                     sv = list(seq)
                     for _ in range(rng.randrange(0, 3)):
                         p = rng.randrange(len(sv))

@@ -1,8 +1,9 @@
 """The CUDA source of K5 and K6 (otter_tpu_torch/csrc/affine_tb.cu) run on
 the CPU: g++ compiles it against a small emulation of the CUDA surface it
 uses (each block a set of std::threads, one per CUDA thread; a warp meets
-at every shuffle, vote and __syncwarp, a block at every __syncthreads; the
-emulation also serves tests/test_torch_distance_emulated.py), and the
+at every shuffle, vote and __syncwarp, a block at every __syncthreads;
+atomicAdd is an atomic add of the host; the emulation also serves the
+other CUDA sources' emulated tests), and the
 kernels' results are held
 against the plain PyTorch version, exactly. This checks the warp-level
 design (the shuffle scan, the reductions, the staging, the nibble codes)
@@ -213,6 +214,11 @@ inline void __syncthreads() {
   emu::wait_turn();
 }
 extern "C" void emu_set_stagger(int s) { emu::stagger = s; }
+// atomicAdd on a shared or device-memory int or float: the block's threads
+// are host threads, so a std::atomic_ref add
+template <class T> T atomicAdd(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_add(v);
+}
 inline unsigned __vcmpeq4(unsigned a, unsigned b) {
   unsigned r = 0;
   for (int c = 0; c < 4; ++c) {

@@ -179,6 +179,9 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
         "from otter_tpu_torch.config import OtterOpts\n"
         "from otter_tpu_torch.models import _finish_worker\n"
         "from otter_tpu_torch.models.compare import compare\n"
+        "from otter_tpu_torch.ops import hclust_device, poa_device\n"
+        "from otter_tpu_torch.kernels import kmer_counts, linkage\n"
+        "from otter_tpu_torch.kernels import poa_heaviest\n"
         "def run(name, argv):\n"
         "    buf, sys.stdout = sys.stdout, io.StringIO()\n"
         "    try:\n"
@@ -234,12 +237,21 @@ def test_cli_runs_without_jax(fixtures, tmp_path):
             assert fh.read() == text, name
 
 
-def test_jax_only_settings_raise(fixtures, monkeypatch):
-    """A setting that would send the shared host code into a JAX device
-    path raises instead of loading JAX."""
+def test_poa_device_setting_byte_identical(fixtures, monkeypatch):
+    """OTTER_TPU_POA_DEVICE=1 builds the POA graphs in Python and runs the
+    heaviest-path DP on K12 (its plain version on the CPU engine): the
+    port writes otter_tpu --device host's bytes (exact)."""
+    from otter_tpu_torch.kernels import poa_heaviest
+
+    calls = []
+    plain = poa_heaviest.poa_heaviest_torch
+    monkeypatch.setattr(poa_heaviest, "poa_heaviest_torch",
+                        lambda batch: calls.append(1) or plain(batch))
     monkeypatch.setenv("OTTER_TPU_POA_DEVICE", "1")
-    with pytest.raises(RuntimeError):
-        _run(assemble, fixtures["het"], "cpu", "sam")
+    got = _run(assemble, fixtures["het"], "cpu", "sam")
+    monkeypatch.delenv("OTTER_TPU_POA_DEVICE")
+    assert got == _run(reference_assemble, fixtures["het"], "host", "sam")
+    assert calls
 
 
 @pytest.mark.parametrize("name", list(FIXTURES))

@@ -659,3 +659,98 @@ def test_assemble_mesh_cuda_byte_identical(cuda_device, tmp_path,
         assemble(bam, bed, "", False, p, out=out, dist_backend=backend)
         texts.append(out.getvalue())
     assert texts[0] == texts[1] and texts[0]
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_kmer_counts_cuda_matches_plain(cuda_device, k):
+    """K10 on the card equals its plain version: shared-memory histograms
+    at k = 1 and 3, device-memory atomics at k = 8."""
+    from otter_tpu_torch.kernels import kmer_counts as K10
+
+    rng = random.Random(k)
+    seqs = ["".join(rng.choice("ACGTacgtN") for _ in range(rng.randint(0,
+                                                                       400)))
+            for _ in range(300)] + ["", "A", "ACG"]
+    blob = "".join(seqs).encode()
+    offsets = np.zeros(len(seqs) + 1, dtype=np.int32)
+    np.cumsum([len(s) for s in seqs], out=offsets[1:])
+    data = torch.from_numpy(np.frombuffer(blob, dtype=np.uint8).copy())
+    want = K10.kmer_counts_torch(data, torch.from_numpy(offsets), k)
+    before = K10.kmer_counts_cuda.launches
+    got = K10.kmer_counts(data.to(cuda_device),
+                          torch.from_numpy(offsets).to(cuda_device), k)
+    assert K10.kmer_counts_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [2, 129, 300])
+def test_linkage_cuda_matches_plain(cuda_device, n):
+    """K11 on the card equals its plain version bit for bit: D in shared
+    memory (n = 2, 129; two matrices) and in device memory (n = 300)."""
+    from otter_tpu_torch.kernels import linkage as K11
+
+    rng = np.random.default_rng(n)
+    D = np.zeros((2, n, n), dtype=np.float32)
+    iu = np.triu_indices(n, 1)
+    for b in range(2):
+        D[b][iu] = rng.random(len(iu[0]))
+        D[b] += D[b].T
+    D = torch.from_numpy(D)
+    want_r, want_h = K11.linkage_torch(D)
+    got_r, got_h = K11.linkage(D.to(cuda_device))
+    assert torch.equal(got_r.cpu(), want_r)
+    assert torch.equal(got_h.cpu().view(torch.int32),
+                       want_h.view(torch.int32))
+
+
+def test_poa_heaviest_cuda_matches_plain(cuda_device):
+    """K12 on the card equals its plain version (h bit for bit, min_eid
+    equal) on seeded graphs, and the consensus strings equal the python
+    oracle's."""
+    from otter_tpu_torch.kernels import poa_heaviest as K12
+    from otter_tpu_torch.ops.align_np import affine_align_cigar
+    from otter_tpu_torch.ops.poa import Ppoa
+    from otter_tpu_torch.ops.poa_device import (graph_arrays,
+                                                poa_consensus_device_batch)
+
+    rng = random.Random(17)
+    poas = []
+    for _ in range(24):
+        base = _acgt(rng, rng.randint(50, 600))
+        seqs = [base] + [_mutate(rng, base, 0.05) for _ in range(6)]
+        poa = Ppoa(base)
+        for s in seqs:
+            poa.insert_alignment(s, affine_align_cigar(base, s), True, True)
+        poa.adjust_weights(float(np.float32(7 * np.float32(0.4))), 0.3)
+        poas.append(poa)
+    arrs = [graph_arrays(p) for p in poas]
+    batch = K12.pack_graphs([(a[0], a[1], a[2], a[5]) for a in arrs])
+    want_h, want_m = K12.poa_heaviest_torch(batch)
+    got_h, got_m = K12.poa_heaviest(batch.to(cuda_device))
+    assert torch.equal(got_h.cpu().view(torch.int32),
+                       want_h.view(torch.int32))
+    assert torch.equal(got_m.cpu(), want_m)
+    assert poa_consensus_device_batch(poas, cuda_device) == [
+        p.consensus() for p in poas]
+
+
+def test_assemble_poa_device_cuda_byte_identical(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """assemble on the card with OTTER_TPU_POA_DEVICE=1 (K12) writes the
+    bytes of the default route (native PPOA)."""
+    from otter_tpu_torch.config import OtterOpts as PortOpts
+    from otter_tpu_torch.kernels import poa_heaviest as K12
+
+    bam, bed = _tandem_loci(tmp_path)
+    texts = []
+    for env in ("0", "1"):
+        monkeypatch.setenv("OTTER_TPU_POA_DEVICE", env)
+        p = PortOpts()
+        p.read_group = "S1"
+        out = io.StringIO()
+        before = K12.poa_heaviest_cuda.launches
+        assemble(bam, bed, "", False, p, out=out,
+                 dist_backend=TorchDistBackend(cuda_device))
+        assert (K12.poa_heaviest_cuda.launches > before) == (env == "1")
+        texts.append(out.getvalue())
+    assert texts[0] == texts[1] and texts[0]
