@@ -66,8 +66,9 @@ exits non-zero:
    what their inputs hold;
 7. ``-t`` and several processes: hifi-tr-1.5k at ``-t 1`` and ``-t 8`` in
    turns (walls, ``host_io``), each byte-identical to phase 5's card
-   output, and ``OTTER_TPU_FINISH_POOL=1 -t 8`` raising on the card (its
-   workers would run on the host); then the port's command line in
+   output, and with ``OTTER_TPU_FINISH_POOL=1 -t 8`` (eight spawned
+   workers on the host; K1 and K8 must launch in this process),
+   byte-identical again; then the port's command line in
    separate processes sharing the card (``--dist-worker``): hifi-tr-1.5k in
    one process, in two over gloo
    with per-process streams and with ``OTTER_TPU_GATHER=1``, and in one
@@ -102,12 +103,28 @@ exits non-zero:
    device-memory histogram), with ``torch.bincount`` of the window keys as
    its library call; K11 on seeded tie-free matrices at n = 129 and 1,001,
    partitions equal to the native NN-chain's at three cuts; K12 on the
-   graphs of the hifi-tr-1.5k and refscale runs.
+   graphs of the hifi-tr-1.5k and refscale runs;
+10. the sharded forward step (``parallel/mesh.py::run_sharded_region_step``:
+   K7 a shard, K14 on the first card) on the mesh of every visible card
+   and on two shards of card 0, at the JAX dry run's shapes and at the
+   JAX bench regions leg's (11,904 pairs over 128 regions), distances
+   equal to K7's plain version and densities bit-identical across the
+   meshes; ``dryrun_multichip`` in full on both meshes (its assemble and
+   genotype byte-identical to the CPU run); K14 (that batch, and
+   hifi-tr-1.5k's 160,429 pairs over 32 regions) and K13 (through
+   ``kde_tree`` on K8's three sets) against their plain versions (a
+   relative 1e-6 a cell, the cells not bit-equal counted) and timed; then
+   hifi-tr-1.5k and the refscale region with ``OTTER_TPU_FUSED_KDE=1`` and
+   ``=0`` in turns (walls, K8 on both routes), and hifi-tr-1.5k with
+   ``OTTER_TPU_AFFINE_DEVICE=0`` (K5 must not launch),
+   ``OTTER_TPU_AFFINE_HINTS=0`` and ``=1``, every output byte-identical to
+   phase 5's.
 
 The line before the last is a JSON object with each kernel's launches in
-phase 5 (K9's in phase 8, K10-K12's in phase 9: their only paths), its
-largest disagreement with its plain version, its times and its bound; the
-last line is ``{"ok": true, "device": {...}}``. Every input is made from
+phase 5 (K9's in phase 8, K10-K12's in phase 9, K13's and K14's in phase
+10: their only paths), its largest disagreement with its plain version,
+its times and its bound; the last line is ``{"ok": true, "device":
+{...}}``. Every input is made from
 a seed; nothing is read from the network.
 
     python3 chip_smoke.py --profile
@@ -126,7 +143,9 @@ or its ``KDE_F32_OPS`` f32 operations a (cell, value) over the f32 rate
 (132 x 128 a clock), whichever is longer. K10's are 3 k + 4 int32
 operations a window; K11's 4 f32 operations an active row a step (its
 pass over the rows, and the merged row's multiply, fma and division);
-K12's 2 f32 operations an edge (the add and the compare). K11 and K12 are
+K12's 2 f32 operations an edge (the add and the compare); K13's and
+K14's exps over the MUFU rate or their 6 f32 operations a term
+(``KDE_TERM_F32_OPS``), whichever is longer. K11 and K12 are
 chains of dependent steps (n - 1 merges; a graph's levels), so their
 lines give the steps beside the share.
 """
@@ -174,6 +193,10 @@ KERNELS = {
                 "otter_tpu/ops/hclust_device.py:31 (jnp)"),
     "poa_heaviest": ("otter_tpu_torch/csrc/poa_heaviest.cu",
                      "otter_tpu/ops/poa_device.py:106 (jnp)"),
+    "kde_tree": ("otter_tpu_torch/csrc/kde_scaled.cu",
+                 "otter_tpu/parallel/mesh.py:82 (jnp)"),
+    "kde_pairs": ("otter_tpu_torch/csrc/kde_pairs.cu",
+                  "otter_tpu/parallel/mesh.py:64 (jnp)"),
 }
 
 
@@ -191,6 +214,9 @@ MUFU_LANES = 132 * 16
 F32_LANES = 132 * 128
 # K8's f32 operations a (cell, value): sub, div, 2 mul, max, sub, add
 KDE_F32_OPS = 7
+# K13's and K14's a (cell, value): sub, div, 2 mul, the product by
+# INV_SQRT_2PI / h, add
+KDE_TERM_F32_OPS = 6
 # set by phase 1: the SM clock (Hz)
 CARD = {"sm_hz": None}
 
@@ -1282,11 +1308,12 @@ def kde_values(rs, R: int, n: int) -> np.ndarray:
                    1.0).astype(np.float32)
 
 
-def kde_bound(evals: float, moved: int):
+def kde_bound(evals: float, moved: int, ops: int = KDE_F32_OPS):
     """(bound ms, what bounds it) for ``evals`` (cell, value) evaluations:
-    the exps over the MUFU rate or the f32 operations over the f32 rate,
-    whichever is longer, against the bytes over the memory rate."""
-    t_ops = max(evals / MUFU_LANES, evals * KDE_F32_OPS / F32_LANES) \
+    the exps over the MUFU rate or their ``ops`` f32 operations each over
+    the f32 rate, whichever is longer, against the bytes over the memory
+    rate."""
+    t_ops = max(evals / MUFU_LANES, evals * ops / F32_LANES) \
         / CARD["sm_hz"] * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -1873,15 +1900,20 @@ CELL_KERNELS = ("myers_pool", "myers_striped", "affine_tb", "kde_scaled")
 def host_pools(bam: str, bed: str, want: str) -> None:
     """hifi-tr-1.5k on the card at -t 1 and -t 8 in turns (1, 8, 8, 1):
     walls and ``host_io`` (region prep stays on one thread whatever -t is),
-    every output ``want``, phase 5's card output, byte for byte; then
-    OTTER_TPU_FINISH_POOL=1 -t 8 must raise, since its workers would take
-    each region's host half off the card."""
+    every output ``want``, phase 5's card output, byte for byte; then with
+    OTTER_TPU_FINISH_POOL=1 at -t 8: eight spawned workers take each
+    region's hclust, reassignment and consensus on the host while this
+    process keeps the card (K1 and K8 must launch here), byte-identical
+    again."""
     import torch
 
     from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
     from otter_tpu_torch.utils import metrics
 
-    def once(threads: int, label: str) -> None:
+    def once(threads: int, label: str) -> dict:
+        wrappers = cuda_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
         metrics.reset()
         t0 = time.perf_counter()
         text = run(bam, bed, TorchDistBackend("cuda"), threads=threads)
@@ -1893,22 +1925,23 @@ def host_pools(bam: str, bed: str, want: str) -> None:
         phases = {k: round(snap.get(f"time.{k}", 0.0), 4) for k in (
             "host_io", "device_dispatch", "cluster_consensus",
             "consensus_batch")}
+        launched = {k: fn.launches for k, fn in wrappers.items()
+                    if fn.launches}
         log(f"hifi-tr-1.5k {label}: wall {wall:.3f} s, identical to phase "
-            f"5: True; phase seconds {json.dumps(phases)}")
+            f"5: True; phase seconds {json.dumps(phases)}; launches in "
+            f"this process {json.dumps(launched)}")
+        return launched
 
     for threads in (1, 8, 8, 1):
         once(threads, f"-t {threads}")
     os.environ["OTTER_TPU_FINISH_POOL"] = "1"
     try:
-        run(bam, bed, TorchDistBackend("cuda"), threads=8)
-        raised = ""
-    except RuntimeError as e:
-        raised = str(e)
+        launched = once(8, "-t 8, finish pool of 8 workers")
     finally:
         os.environ.pop("OTTER_TPU_FINISH_POOL", None)
-    check("OTTER_TPU_FINISH_POOL" in raised, "OTTER_TPU_FINISH_POOL=1 -t 8 "
-          "on the card did not raise")
-    log(f"hifi-tr-1.5k finish pool -t 8 on the card raises: {raised}")
+    check(launched.get("myers_pool", 0) > 0
+          and launched.get("kde_scaled", 0) > 0,
+          "finish pool: K1 and K8 did not launch in the parent")
 
 
 def dist_worker_main(argv: list) -> int:
@@ -2544,6 +2577,307 @@ def phase_device_paths(tmp: str, dev, fixtures: list, runs: dict, g64: dict,
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the sharded forward step (K7, K14), K13, the fused collect and
+# the consensus settings
+# ---------------------------------------------------------------------------
+
+
+def step_wrappers() -> dict:
+    """K13 and K14 by name: the wrappers whose ``launches`` count them."""
+    from otter_tpu_torch.kernels import kde_pairs, kde_scaled
+
+    return {"kde_tree": kde_scaled.kde_tree_cuda,
+            "kde_pairs": kde_pairs.kde_pairs_cuda}
+
+
+def regions_leg_batch(rs, n_regions: int = 128, cov: int = 12):
+    """The all-vs-all pairs of the JAX bench's regions leg
+    (``build_fixture(n_regions=128, cov=12)``, bench.py:180-188) as one
+    step batch: an even region's two alleles of cov / 2 + 2 reads give
+    C(16, 2) = 120 pairs, an odd region's cov reads C(12, 2) = 66; each
+    pair a 120-200 bp sequence against a copy at 3% error, the regions
+    interleaved; packed at k = 63 as the step takes them."""
+    from otter_tpu_torch.kernels.edit_banded import pack_bucket
+
+    per = [(cov // 2 + 2) * 2 if r % 2 == 0 else cov for r in
+           range(n_regions)]
+    per = [c * (c - 1) // 2 for c in per]
+    pairs, rid = [], []
+    for j in range(max(per)):
+        for r in range(n_regions):
+            if j < per[r]:
+                base = rand_acgt(rs, int(rs.integers(120, 201)))
+                pairs.append((base, mutate(rs, base, 0.03)))
+                rid.append(r)
+    a, bp, mn, L = pack_bucket(pairs, 63)
+    region_id = np.zeros(a.shape[0], dtype=np.int32)
+    region_id[: len(rid)] = rid
+    valid = np.zeros(a.shape[0], dtype=bool)
+    valid[: len(rid)] = True
+    bw = np.full(n_regions, 0.01, dtype=np.float32)
+    return a, bp, mn, region_id, valid, bw, 63, L
+
+
+def sharded_steps(dev, rs) -> dict:
+    """The sharded forward step (K7 a shard, then K14 on the first card)
+    on the mesh of every visible card and on two shards of card 0, at the
+    JAX dry run's shapes and at the regions leg's (11,904 pairs, 128
+    regions): distances equal to K7's plain version on every row,
+    densities bit-identical across the meshes and within a relative 1e-6
+    (1e-30 absolute) of K14's plain version. Returns the regions leg's
+    inputs on the card, for K14's timing."""
+    import torch
+
+    from otter_tpu_torch.kernels.edit_banded import edit_banded_torch
+    from otter_tpu_torch.kernels.kde_pairs import (kde_pairs_torch,
+                                                   linspace_grid)
+    from otter_tpu_torch.parallel.dryrun import example_pair_batch
+    from otter_tpu_torch.parallel.mesh import (make_mesh,
+                                               run_sharded_region_step)
+
+    meshes = {"every card": make_mesh(), "two shards of card 0": (dev, dev)}
+    a, bp, mn, rid, valid, k, L = example_pair_batch(n_pairs=32)
+    sets = {"dry-run shapes": (a, bp, mn, rid, valid,
+                               np.full(2, 0.01, dtype=np.float32), k, L),
+            "regions leg": regions_leg_batch(rs)}
+    for name, (a, bp, mn, rid, valid, bw, k, L) in sets.items():
+        got = {}
+        for mname, mesh in meshes.items():
+            t0 = time.perf_counter()
+            d, dens = run_sharded_region_step(
+                mesh, a, bp, mn[:, 0], mn[:, 1], rid, valid, bw, k=k,
+                max_rows=L, n_regions=len(bw))
+            torch.cuda.synchronize()
+            got[mname] = (d, dens, time.perf_counter() - t0)
+        d, dens, _wall = got["every card"]
+        plain_d = edit_banded_torch(*(torch.from_numpy(x).to(dev)
+                                      for x in (a, bp, mn)), k)
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+            mn[:, 0], mn[:, 1], rid, valid, bw, linspace_grid(401))]
+        plain = kde_pairs_torch(plain_d, *args)
+        same = all(torch.equal(g[0], d) and torch.equal(g[1], dens)
+                   for g in got.values())
+        diff = (dens - plain).abs()
+        ok = bool((diff <= 1e-6 * plain.abs() + 1e-30).all())
+        rel = float((diff / plain.abs().clamp(min=1e-30)).max())
+        log(f"step, {name}: {int(valid.sum())} pairs, {len(bw)} regions, "
+            f"{a.shape[0]} rows, L {L}; distances equal to K7's plain "
+            f"version {torch.equal(d, plain_d)}, "
+            f"{int((d == 1 << 24).sum())} INF; densities bit-identical on "
+            f"the two meshes {same}, against K14's plain version max rel "
+            f"{rel:.3g} (tolerance 1e-6), {int((dens != plain).sum())} of "
+            f"{dens.numel()} cells not bit-equal; walls " + ", ".join(
+                f"{m} {g[2]:.3f} s" for m, g in got.items()))
+        check(torch.equal(d, plain_d) and same and ok,
+              f"the sharded step on the {name} set disagrees")
+    return sets["regions leg"]
+
+
+def hifi_pair_inputs(rs, dev, n_pairs: int = 160429, n_regions: int = 32):
+    """K14's inputs at hifi-tr-1.5k's pair count over its 32 regions: 1.5
+    and 1.8 kb lengths, two thirds of the distances near 0.4% of the
+    longer side and a third near 17%, region p % 32."""
+    import torch
+
+    m = rs.integers(1500, 1800, n_pairs).astype(np.int32)
+    n = (m + rs.integers(-10, 11, n_pairs)).astype(np.int32)
+    frac = np.where(rs.random(n_pairs) < 2 / 3,
+                    rs.normal(0.004, 0.0015, n_pairs),
+                    rs.normal(0.17, 0.01, n_pairs)).clip(0, 1)
+    d = (frac * np.maximum(m, n)).astype(np.int32)
+    rid = (np.arange(n_pairs) % n_regions).astype(np.int32)
+    valid = np.ones(n_pairs, dtype=bool)
+    bw = np.full(n_regions, 0.015, dtype=np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (d, m, n, rid, valid, bw)]
+
+
+def kernel_k14(dev, leg, rs) -> dict:
+    """K14 against its plain version on the card, timed with its bound, on
+    the regions leg's batch (its K7 distances) and at hifi-tr-1.5k's
+    160,429 pairs over 32 regions. Returns the first set's JSON fields."""
+    import torch
+
+    from otter_tpu_torch.kernels import kde_pairs as K14
+    from otter_tpu_torch.kernels.edit_banded import edit_banded
+
+    a, bp, mn, rid, valid, bw, k, _L = leg
+    d = edit_banded(*(torch.from_numpy(x).to(dev) for x in (a, bp, mn)), k)
+    sets = {"regions leg (128 regions)": [d] + [
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        for x in (mn[:, 0], mn[:, 1], rid, valid, bw)],
+        "hifi-tr-1.5k pairs (32 regions)": hifi_pair_inputs(rs, dev)}
+    xs = torch.from_numpy(K14.linspace_grid(401)).to(dev)
+    out = None
+    for name, args in sets.items():
+        args = args + [xs]
+        grouped = K14.group_pairs(args[3], args[4], args[5].shape[0])
+        got = K14.kde_pairs_cuda(*args, grouped=grouped)
+        plain_ms, plain = time_once(lambda: K14.kde_pairs_torch(*args))
+        diff = (got - plain).abs()
+        ok = bool((diff <= 1e-6 * plain.abs() + 1e-30).all())
+        rel = float((diff / plain.abs().clamp(min=1e-30)).max())
+        check(ok, f"K14 disagrees with its plain version on the {name} set "
+              f"(max rel {rel:.3g})")
+        ms = time_ms(lambda: K14.kde_pairs_cuda(*args, grouped=grouped), 5)
+        pairs = int(args[4].sum())
+        evals = float(pairs * xs.numel())
+        moved = nbytes(*args) + 4 * got.numel()
+        bound_ms, bound_by = kde_bound(evals, moved, KDE_TERM_F32_OPS)
+        log(f"K14 kde_pairs, {name}: {pairs} pairs x {xs.numel()} grid "
+            f"points, max rel diff {rel:.3g} (tolerance 1e-6, 1e-30 "
+            f"absolute), {int((got != plain).sum())} of {got.numel()} cells "
+            f"not bit-equal; kernel {ms:.3f} ms (grouping excluded), plain "
+            f"{plain_ms:.3f} ms ({evals / ms / 1e9:.2f} G evaluations/s "
+            f"kernel); bound {bound_ms:.4f} ms by {bound_by}, "
+            f"{100 * bound_ms / ms:.2f}% of it; library call: none")
+        if out is None:
+            out = {"max_abs_err": float(diff.max()), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+    return out
+
+
+def kernel_k13(dev, rs) -> tuple:
+    """K13 through the port's ``kde_tree`` (the JAX ``kde_tree_step``) on
+    K8's three sets (its only path: the JAX function has no caller),
+    launches counted; then against its plain version on the card (a
+    relative 1e-6 a cell, 1e-30 absolute; the cells not bit-equal counted)
+    and timed with its bound. Returns (launches, the first set's JSON
+    fields)."""
+    import torch
+
+    from otter_tpu_torch.kernels import kde_scaled as K8
+    from otter_tpu_torch.ops.kde import kde_grid
+
+    xs = torch.from_numpy(kde_grid(0.0025).astype(np.float32)).to(dev)
+    G = xs.shape[0]
+    sets = []
+    for name, R, n in KDE_SETS:
+        n_pad = 1 << (n - 1).bit_length()
+        V = np.zeros((R, n_pad), dtype=np.float32)
+        V[:, :n] = kde_values(rs, R, n)
+        bw = np.where(np.arange(R) % 2, 0.015, 0.01).astype(np.float32)
+        sets.append((name, R, n, [torch.from_numpy(x).to(dev) for x in (
+            V, np.full(R, n, dtype=np.int32), bw)] + [xs]))
+    K8.kde_tree_cuda.launches = 0
+    path = [K8.kde_tree(*args, n_max=n) for _name, _R, n, args in sets]
+    torch.cuda.synchronize()
+    launches = K8.kde_tree_cuda.launches
+    out = None
+    for (name, R, n, args), got in zip(sets, path):
+        plain_ms, plain = time_once(lambda: K8.kde_tree_torch(*args))
+        diff = (got - plain).abs()
+        ok = bool((diff <= 1e-6 * plain.abs() + 1e-30).all())
+        rel = float((diff / plain.abs().clamp(min=1e-30)).max())
+        check(ok and torch.isfinite(got).all(), f"K13 disagrees with its "
+              f"plain version on the {name} set (max rel {rel:.3g})")
+        ms = time_ms(lambda: K8.kde_tree_cuda(*args, n_max=n), 5)
+        evals = float(R * n * G)
+        moved = 4 * R * n + nbytes(*args[1:]) + 4 * R * G
+        bound_ms, bound_by = kde_bound(evals, moved, KDE_TERM_F32_OPS)
+        log(f"K13 kde_tree, {name} ({R} regions x {n} values, G {G}): max "
+            f"rel diff {rel:.3g} (tolerance 1e-6, 1e-30 absolute), "
+            f"{int((got != plain).sum())} of {R * G} cells not bit-equal; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+            f"({evals / ms / 1e9:.2f} G evaluations/s kernel); bound "
+            f"{bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.2f}% "
+            "of it; library call: none")
+        if out is None:
+            out = {"max_abs_err": float(diff.max()), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+    return launches, out
+
+
+def setting_runs(name: str, bam: str, bed: str, want: str, runs) -> None:
+    """``name`` on the card under each (label, settings) of ``runs``, in
+    order: each output ``want`` (phase 5's) byte for byte, its wall, the
+    kernel launches and the KDE and consensus phase seconds."""
+    import torch
+
+    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.utils import metrics
+
+    for label, env in runs:
+        wrappers = cuda_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        metrics.reset()
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            text = run(bam, bed, TorchDistBackend("cuda"))
+            torch.cuda.synchronize()
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+        wall = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        launched = {k: fn.launches for k, fn in wrappers.items()
+                    if fn.launches}
+        phases = {k: round(snap.get(f"time.{k}", 0.0), 4) for k in (
+            "device_dispatch", "kde_device", "kde_certify", "consensus_hints",
+            "consensus_affine")}
+        log(f"{name}, {label}: wall {wall:.3f} s, identical to phase 5: "
+            f"{text == want}; launches {json.dumps(launched)}; KDE regions "
+            f"{int(snap.get('count.kde_device_regions', 0))}; phase seconds "
+            f"{json.dumps(phases)}")
+        check(text == want, f"{name}, {label}: output differs from phase 5's")
+        check(launched.get("kde_scaled", 0) > 0 or "FUSED" not in label,
+              f"{name}, {label}: K8 did not launch")
+        check(launched.get("affine_tb", 0) == 0
+              or "AFFINE_DEVICE=0" not in label,
+              f"{name}, {label}: K5 launched")
+
+
+def phase_region_step(tmp: str, dev, fixtures: list, runs: dict) -> tuple:
+    """Phase 10: the sharded forward step and the dry run on the card
+    (K14's launches counted over them), K14 and K13 against their plain
+    versions and timed, then hifi-tr-1.5k and the refscale region with the
+    fused collect on and off in turns, and hifi-tr-1.5k under the consensus
+    settings. Returns (launches, timings) by kernel name."""
+    import torch
+
+    from otter_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    log("== phase 10: the sharded forward step, K13, K14, the fused collect")
+    t0 = time.perf_counter()
+    rs = np.random.default_rng(10)
+    for fn in step_wrappers().values():
+        fn.launches = 0
+    leg = sharded_steps(dev, rs)
+    for n, devices in ((torch.cuda.device_count(), None), (2, (dev, dev))):
+        t1 = time.perf_counter()
+        out = dryrun_multichip(n, devices)
+        log(f"dryrun_multichip({n}, {out['devices']}) passed in "
+            f"{time.perf_counter() - t1:.1f} s")
+    launches = {"kde_pairs": step_wrappers()["kde_pairs"].launches}
+    check(launches["kde_pairs"] > 0, "K14 did not launch in the step")
+    log(f"-- step and dry runs done, {time.perf_counter() - t0:.1f} s into "
+        "phase 10")
+    timings = {"kde_pairs": kernel_k14(dev, leg, rs)}
+    launches["kde_tree"], timings["kde_tree"] = kernel_k13(dev, rs)
+    check(launches["kde_tree"] > 0, "K13 did not launch")
+    log(f"-- K13 and K14 done, {time.perf_counter() - t0:.1f} s into phase 10")
+    fused = [("OTTER_TPU_FUSED_KDE=1", {"OTTER_TPU_FUSED_KDE": "1"}),
+             ("OTTER_TPU_FUSED_KDE=0", {"OTTER_TPU_FUSED_KDE": "0"})]
+    for i in (0, 3):  # hifi-tr-1.5k, the refscale region
+        setting_runs(CELLS[i][0], *fixtures[i], runs[CELLS[i][0]][1],
+                     fused + fused[::-1])
+    setting_runs("cell hifi-tr-1.5k", *fixtures[0],
+                 runs["cell hifi-tr-1.5k"][1], [
+                     ("OTTER_TPU_AFFINE_DEVICE=0",
+                      {"OTTER_TPU_AFFINE_DEVICE": "0"}),
+                     ("OTTER_TPU_AFFINE_HINTS=0",
+                      {"OTTER_TPU_AFFINE_HINTS": "0"}),
+                     ("OTTER_TPU_AFFINE_HINTS=1",
+                      {"OTTER_TPU_AFFINE_HINTS": "1"}),
+                     ("default", {})])
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    return launches, timings
+
+
 def phase_profile(tmp: str) -> None:
     """Cell hifi-tr-1.5k three times untraced, then once under
     torch.profiler: wall, device busy time (the union of kernel and copy
@@ -2636,6 +2970,11 @@ def main() -> int:
             launches.update(opt_launches)
             timings.update(opt_timings)
             done("phase 9")
+            step_launches, step_timings = phase_region_step(tmp, dev,
+                                                            fixtures, runs)
+            launches.update(step_launches)
+            timings.update(step_timings)
+            done("phase 10")
         finally:
             if oracle.poll() is None:
                 oracle.kill()

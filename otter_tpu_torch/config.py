@@ -9,32 +9,26 @@ flank 21..<10000 (:150), [0,1] range checks (:21-24).
 
 from __future__ import annotations
 
-import os
 import sys
 from dataclasses import dataclass, field
 
 from .utils.timestamp import antimestamp
 
-# settings with which the JAX package reroutes its consensus around its
-# accelerator's round trips (the host ladder instead of the traceback
-# kernel; band seeds on or off); the port's consensus always takes K5 with
-# seeded bands, so no work leaves the device the engine runs on
-FIXED_ROUTE_SETTINGS = (("OTTER_TPU_AFFINE_DEVICE", "0"),
-                        ("OTTER_TPU_AFFINE_HINTS", "0"),
-                        ("OTTER_TPU_AFFINE_HINTS", "1"))
-
-
-def check_settings() -> None:
-    """Raise for a setting that asks for a path the port does not take, so
-    that no setting of the JAX package is silently ignored. Every entry
-    point that reads a setting (assemble, genotype, compare) calls this.
-    The JAX package's opt-in device paths (OTTER_TPU_KMER_DEVICE,
-    OTTER_TPU_HCLUST_DEVICE, OTTER_TPU_POA_DEVICE) run on K10-K12."""
-    for name, value in FIXED_ROUTE_SETTINGS:
-        if os.environ.get(name) == value:
-            raise RuntimeError(f"{name}={value} reroutes the consensus; the "
-                               "PyTorch port always takes the affine "
-                               "traceback kernel (K5) with seeded bands")
+# Settings the JAX package reads that pick a TPU layout or dispatch shape;
+# no output byte depends on them and the port has no such choice to make,
+# so it reads none of them. Every other setting of the JAX package is
+# honoured: the consensus routes (OTTER_TPU_AFFINE_DEVICE,
+# OTTER_TPU_AFFINE_HINTS, ops/consensus.py), the finish pool
+# (OTTER_TPU_FINISH_POOL), the fused distance and KDE collect
+# (OTTER_TPU_FUSED_KDE) and the opt-in device paths (OTTER_TPU_KMER_DEVICE,
+# OTTER_TPU_HCLUST_DEVICE, OTTER_TPU_POA_DEVICE on K10-K12) all run.
+NO_OP_SETTINGS = {
+    "OTTER_TPU_MYERS_POOL": "the Myers pair pool: K1 always reads the pool",
+    "OTTER_TPU_MYERS_PACKED": "the packed Myers layout: K1 has one layout",
+    "OTTER_TPU_NATIVE_PACK": "the C++ packer of the TPU's Myers inputs",
+    "OTTER_TPU_SPEC_CELLS": "the TPU ladder's speculative rungs, not ported",
+    "OTTER_TPU_PROFILE": "the jax.profiler hook, which nothing calls",
+}
 
 
 class OtterConfigError(SystemExit):

@@ -79,15 +79,10 @@
 
 #include <cuda_runtime.h>
 
+#include "kde_rows.cuh"
+
 #ifndef __CUDACC__
-// host build of this source (the CPU tests' warp emulation): g++ in ISO mode
-// contracts nothing either
-inline float __fmul_rn(float a, float b) { return a * b; }
-inline float __fadd_rn(float a, float b) { return a + b; }
-inline float __fsub_rn(float a, float b) { return a - b; }
-inline float __fdiv_rn(float a, float b) { return a / b; }
-inline float __frcp_rn(float a) { return 1.0f / a; }
-inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+// host build of this source (the CPU tests' warp emulation)
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline unsigned __brev(unsigned x) {
   unsigned r = 0;
@@ -155,18 +150,23 @@ __device__ __forceinline__ float term(float x, float v, float h, float y,
 // first kReal are real (the rest are the tree's zeros); t = (a + b) +
 // (c + d) with a = i, b = i + 2 qr, c = i + qr, d = i + 3 qr, each zero
 // left out (x + 0 is x).
-template <int kC, int kReal, bool kFast>
+// With kUnscaled (K13), m is 0 and each term is multiplied by cst, as
+// kde_tree_step's (INV_SQRT_2PI / h) * exp(-(z z) / 2).
+template <int kC, int kReal, bool kFast, bool kUnscaled>
 __device__ __forceinline__ void step_sum(const float* v, int i, int qr,
                                          const float (&x)[kC], float h,
                                          float y, const float (&m)[kC],
-                                         float (&t)[kC]) {
+                                         float cst, float (&t)[kC]) {
   const float va = kReal >= 1 ? v[i] : 0.0f;
   const float vc = kReal >= 2 ? v[i + qr] : 0.0f;
   const float vb = kReal >= 3 ? v[i + 2 * qr] : 0.0f;
   const float vd = kReal >= 4 ? v[i + 3 * qr] : 0.0f;
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
-    auto e = [&](float vv) { return term<kFast>(x[c], vv, h, y, m[c]); };
+    auto e = [&](float vv) {
+      const float u = term<kFast>(x[c], vv, h, y, m[c]);
+      return kUnscaled ? __fmul_rn(cst, u) : u;
+    };
     if constexpr (kReal == 4) {
       t[c] = __fadd_rn(__fadd_rn(e(va), e(vb)), __fadd_rn(e(vc), e(vd)));
     } else if constexpr (kReal == 3) {
@@ -184,11 +184,11 @@ __device__ __forceinline__ void step_sum(const float* v, int i, int qr,
 // The halving tree over lane j's values j + P k (n of the region's values
 // real), for kC cells: the steps in bit-reversed order of k, folded with a
 // stack of kLevels sums a cell.
-template <int kC, int kLevels, bool kFast>
+template <int kC, int kLevels, bool kFast, bool kUnscaled>
 __device__ __forceinline__ void lane_sum(const float* v, int j, int P, int n,
                                          const float (&x)[kC], float h,
                                          float y, const float (&m)[kC],
-                                         float (&t)[kC]) {
+                                         float cst, float (&t)[kC]) {
   int bits = 0;  // log2 (K / 4)
   while ((P << (bits + 2)) < n) ++bits;
   const int quarter = P << bits;  // lanes apart of k and k + K/4
@@ -201,15 +201,20 @@ __device__ __forceinline__ void lane_sum(const float* v, int j, int P, int n,
     // how many of i, i + quarter, i + 2 quarter, i + 3 quarter are < n
     const int real = min(4, max(0, (n - i + quarter - 1) >> shift));
     if (real == 2) {
-      step_sum<kC, 2, kFast>(v, i, quarter, x, h, y, m, t);
+      step_sum<kC, 2, kFast, kUnscaled>(v, i, quarter, x, h, y, m, cst,
+                                         t);
     } else if (real == 3) {
-      step_sum<kC, 3, kFast>(v, i, quarter, x, h, y, m, t);
+      step_sum<kC, 3, kFast, kUnscaled>(v, i, quarter, x, h, y, m, cst,
+                                         t);
     } else if (real == 4) {
-      step_sum<kC, 4, kFast>(v, i, quarter, x, h, y, m, t);
+      step_sum<kC, 4, kFast, kUnscaled>(v, i, quarter, x, h, y, m, cst,
+                                         t);
     } else if (real == 1) {
-      step_sum<kC, 1, kFast>(v, i, quarter, x, h, y, m, t);
+      step_sum<kC, 1, kFast, kUnscaled>(v, i, quarter, x, h, y, m, cst,
+                                         t);
     } else {
-      step_sum<kC, 0, kFast>(v, i, quarter, x, h, y, m, t);
+      step_sum<kC, 0, kFast, kUnscaled>(v, i, quarter, x, h, y, m, cst,
+                                         t);
     }
 #pragma unroll
     for (int l = 0; l < kLevels; ++l) {
@@ -244,13 +249,17 @@ __device__ __forceinline__ void lane_min(const float* v, int j, int P, int n,
 // (blockDim.x = 32 W Q <= kThreads). Shared memory: the staged row (stage
 // floats), the warps' row statistics (kWarps x 2), the warps' minima
 // (kWarps x kC), and with W > 1 the lane sums (kC x blockDim.x).
-template <int kC, int kLevels>
+// kUnscaled (K13, kde_tree_step): no max pass (m = 0), each term times
+// INV_SQRT_2PI / h, s_out the raw sums and div_out (R,) h * nvals; m_out
+// is not written.
+template <int kC, int kLevels, bool kUnscaled>
 __global__ void __launch_bounds__(kThreads)
 kde_scaled_kernel(const float* __restrict__ vals, int n_pad,
                   const int32_t* __restrict__ nvals,
                   const float* __restrict__ bw, const float* __restrict__ xs,
                   int n_cells, int warps, int cell_blocks, int stage,
-                  float* __restrict__ m_out, float* __restrict__ s_out) {
+                  float* __restrict__ m_out, float* __restrict__ s_out,
+                  float* __restrict__ div_out) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   float* sv = reinterpret_cast<float*>(smem_raw);
   float* stat_part = sv + stage;
@@ -290,34 +299,39 @@ kde_scaled_kernel(const float* __restrict__ vals, int n_pad,
   for (int c = 0; c < kC; ++c) x[c] = xs[min(g0 + c, n_cells - 1)];
   __syncthreads();
 
-  // the staged row through a pointer the compiler knows is shared (LDS)
-  float d[kC];
-  if (staged) {
-    lane_min(sv, j, P, n, x, d);
+  float m[kC];
+  if constexpr (kUnscaled) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) m[c] = 0.0f;
   } else {
-    lane_min(row, j, P, n, x, d);
-  }
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      d[c] = fminf(d[c], __shfl_xor_sync(0xffffffffu, d[c], o));
+    // the staged row through a pointer the compiler knows is shared (LDS)
+    float d[kC];
+    if (staged) {
+      lane_min(sv, j, P, n, x, d);
+    } else {
+      lane_min(row, j, P, n, x, d);
     }
-  }
-  if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
-      dmin_part[(threadIdx.x >> 5) * kC + c] = d[c];
-    }
-  }
-  __syncthreads();
-  float m[kC];
-  const float* dm = dmin_part + group * warps * kC;
 #pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    float least = dm[c];
-    for (int w = 1; w < warps; ++w) least = fminf(least, dm[w * kC + c]);
-    m[c] = neg_half_sq(__fdiv_rn(least, h));  // -inf without values
+      for (int o = 16; o > 0; o >>= 1) {
+        d[c] = fminf(d[c], __shfl_xor_sync(0xffffffffu, d[c], o));
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        dmin_part[(threadIdx.x >> 5) * kC + c] = d[c];
+      }
+    }
+    __syncthreads();
+    const float* dm = dmin_part + group * warps * kC;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float least = dm[c];
+      for (int w = 1; w < warps; ++w) least = fminf(least, dm[w * kC + c]);
+      m[c] = neg_half_sq(__fdiv_rn(least, h));  // -inf without values
+    }
   }
   for (int w = 0; w < threads / 32; ++w) {
     vmax = fmaxf(vmax, stat_part[2 * w]);
@@ -334,14 +348,16 @@ kde_scaled_kernel(const float* __restrict__ vals, int n_pad,
 
   float t[kC];
   const float y = __frcp_rn(h);
+  const float cst = kUnscaled ? __fdiv_rn(kInvSqrt2Pi, h) : 0.0f;
   if (staged && fast) {
-    lane_sum<kC, kLevels, true>(sv, j, P, n, x, h, y, m, t);
+    lane_sum<kC, kLevels, true, kUnscaled>(sv, j, P, n, x, h, y, m, cst, t);
   } else if (staged) {
-    lane_sum<kC, kLevels, false>(sv, j, P, n, x, h, y, m, t);
+    lane_sum<kC, kLevels, false, kUnscaled>(sv, j, P, n, x, h, y, m, cst, t);
   } else if (fast) {
-    lane_sum<kC, kLevels, true>(row, j, P, n, x, h, y, m, t);
+    lane_sum<kC, kLevels, true, kUnscaled>(row, j, P, n, x, h, y, m, cst, t);
   } else {
-    lane_sum<kC, kLevels, false>(row, j, P, n, x, h, y, m, t);
+    lane_sum<kC, kLevels, false, kUnscaled>(row, j, P, n, x, h, y, m, cst,
+                                            t);
   }
 
   if (warps > 1) {  // uniform in the block
@@ -378,11 +394,16 @@ kde_scaled_kernel(const float* __restrict__ vals, int n_pad,
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         if (g0 + c < n_cells) {
-          m_out[static_cast<size_t>(r) * n_cells + g0 + c] = m[c];
+          if (!kUnscaled) {
+            m_out[static_cast<size_t>(r) * n_cells + g0 + c] = m[c];
+          }
           s_out[static_cast<size_t>(r) * n_cells + g0 + c] = t[c];
         }
       }
     }
+  }
+  if (kUnscaled && threadIdx.x == 0 && blockIdx.x % cell_blocks == 0) {
+    div_out[r] = __fmul_rn(h, static_cast<float>(n_real));
   }
 }
 
@@ -462,15 +483,46 @@ Geometry geometry(int n_pad, int n_max, int n_cells, int n_regions,
 }
 
 using Kernel = void (*)(const float*, int, const int32_t*, const float*,
-                        const float*, int, int, int, int, float*, float*);
+                        const float*, int, int, int, int, float*, float*,
+                        float*);
 
+template <bool kUnscaled>
 Kernel pick(const Geometry& geo) {
   if (geo.cells == kWideCells) {
-    return geo.fast ? kde_scaled_kernel<kWideCells, kFastLevels>
-                    : kde_scaled_kernel<kWideCells, kMaxLevels>;
+    return geo.fast ? kde_scaled_kernel<kWideCells, kFastLevels, kUnscaled>
+                    : kde_scaled_kernel<kWideCells, kMaxLevels, kUnscaled>;
   }
-  return geo.fast ? kde_scaled_kernel<kNarrowCells, kFastLevels>
-                  : kde_scaled_kernel<kNarrowCells, kMaxLevels>;
+  return geo.fast ? kde_scaled_kernel<kNarrowCells, kFastLevels, kUnscaled>
+                  : kde_scaled_kernel<kNarrowCells, kMaxLevels, kUnscaled>;
+}
+
+// launch K8 (m_out, s_out) or with kUnscaled K13's sums (s_out, div_out)
+template <bool kUnscaled>
+int launch(const float* vals, int n_pad, const int32_t* nvals,
+           const float* bw, const float* xs, int n_cells, int n_regions,
+           int n_max, int cells, int warps, float* m_out, float* s_out,
+           float* div_out, void* stream) {
+  if (n_max > n_pad || n_pad > (128 << (kMaxLevels - 1)) || warps < 0 ||
+      warps > kWarps || (warps & (warps - 1)) ||
+      (cells != 0 && cells != kNarrowCells && cells != kWideCells)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Geometry geo =
+      geometry(n_pad, n_max, n_cells, n_regions, cells, warps);
+  const int stage =
+      n_max * static_cast<int>(sizeof(float)) <= kMaxStagedBytes ? n_max : 0;
+  const int threads = 32 * geo.warps * geo.groups;
+  const int smem = static_cast<int>(sizeof(float)) *
+                   (stage + kWarps * (2 + geo.cells) +
+                    (geo.warps > 1 ? geo.cells * threads : 0));
+  const Kernel kernel = pick<kUnscaled>(geo);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<geo.blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      vals, n_pad, nvals, bw, xs, n_cells, geo.warps, geo.cell_blocks, stage,
+      m_out, s_out, div_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -487,27 +539,29 @@ extern "C" int otter_kde_scaled_launch(const float* vals, int n_pad,
                                        int warps, float* m_out, float* s_out,
                                        void* stream) {
   if (n_regions <= 0 || n_cells <= 0) return 0;
-  if (n_max > n_pad || n_pad > (128 << (kMaxLevels - 1)) || warps < 0 ||
-      warps > kWarps || (warps & (warps - 1)) ||
-      (cells != 0 && cells != kNarrowCells && cells != kWideCells)) {
+  return launch<false>(vals, n_pad, nvals, bw, xs, n_cells, n_regions, n_max,
+                       cells, warps, m_out, s_out, nullptr, stream);
+}
+
+// Kernel K13 (otter_tpu/parallel/mesh.py::kde_tree_step, jnp): the same
+// traversal without the max pass, each term (INV_SQRT_2PI / h) exp(-(z z) /
+// 2), then each row / (h nvals) and / max(row total, 1e-30) (kde_rows.cuh).
+// vals, nvals, bw, xs, n_max as otter_kde_scaled -> out (R, n_cells) f32;
+// raw (R, n_cells) and div (R,) f32 are scratch; n_cells <= 1024.
+extern "C" int otter_kde_tree(const float* vals, int n_pad,
+                              const int32_t* nvals, const float* bw,
+                              const float* xs, int n_cells, int n_regions,
+                              int n_max, int cells, int warps, float* raw,
+                              float* div, float* out, void* stream) {
+  if (n_regions <= 0 || n_cells <= 0) return 0;
+  if (row_lanes(n_cells) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Geometry geo =
-      geometry(n_pad, n_max, n_cells, n_regions, cells, warps);
-  const int stage =
-      n_max * static_cast<int>(sizeof(float)) <= kMaxStagedBytes ? n_max : 0;
-  const int threads = 32 * geo.warps * geo.groups;
-  const int smem = static_cast<int>(sizeof(float)) *
-                   (stage + kWarps * (2 + geo.cells) +
-                    (geo.warps > 1 ? geo.cells * threads : 0));
-  const Kernel kernel = pick(geo);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<geo.blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      vals, n_pad, nvals, bw, xs, n_cells, geo.warps, geo.cell_blocks, stage,
-      m_out, s_out);
-  return static_cast<int>(cudaGetLastError());
+  const int err = launch<true>(vals, n_pad, nvals, bw, xs, n_cells,
+                               n_regions, n_max, cells, warps, nullptr, raw,
+                               div, stream);
+  if (err != 0) return err;
+  return normalize_rows(raw, div, n_cells, n_regions, out, stream);
 }
 
 extern "C" int otter_kde_scaled(const float* vals, int n_pad,

@@ -63,6 +63,29 @@ def pack_banded(pairs: Sequence[Tuple[str, str]], k: int
     return a, bp, mn
 
 
+def pack_bucket(pairs: Sequence[Tuple[str, str]], k: int, tile_b: int = 32
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """(a, bpad, mn, L): ``pack_banded``'s layout padded as the JAX
+    package's ``_pack_bucket`` pads it (a power of two >= 128 rows, a batch
+    of ``tile_b`` times a power of two, padding pairs m = n = 0), the
+    layout of its sharded forward step."""
+    a0, b0, mn0 = pack_banded(pairs, k)
+    L = 128
+    while L < a0.shape[1]:
+        L *= 2
+    B = tile_b
+    while B < len(pairs):
+        B *= 2
+    W = 2 * (k + 1)
+    a = np.zeros((B, L), dtype=np.int32)
+    bp = np.zeros((B, L + W + 2), dtype=np.int32)
+    mn = np.zeros((B, 2), dtype=np.int32)
+    a[: len(pairs), : a0.shape[1]] = a0
+    bp[: len(pairs), : b0.shape[1]] = b0
+    mn[: len(pairs)] = mn0
+    return a, bp, mn, L
+
+
 def _check(a, bpad, mn, k: int) -> None:
     B, L = a.shape
     if a.dtype != torch.int32 or bpad.dtype != torch.int32 \

@@ -99,6 +99,54 @@ def acgt_flags(seqs: Sequence[str]) -> np.ndarray:
     return (csum[offs[1:]] - csum[offs[:-1]]) == 0
 
 
+def collect_kde(pv: IndexedPairs, pending: list, out: np.ndarray, device,
+                rid: np.ndarray, slot: np.ndarray, ex_entries,
+                nvals: np.ndarray, bw: np.ndarray, n_rows: int,
+                n_pad: int):
+    """The fused collect of K1 results ``pending`` ((pair indices, result
+    tensor) on any devices), gathered on ``device``: the distances and the
+    batch's scaled KDE (``parallel/mesh.py::kde_fused_from_pairs``, K8)
+    in one device-to-host copy. ``rid`` / ``slot``: each pair's KDE row
+    (``n_rows`` for a pair of no KDE region) and its slot in the row;
+    ``ex_entries``: (row, slot, value) of the host-known values, to which
+    the KDE regions' pairs that no kernel took (equal sequences, an empty
+    side) are added with their normalised distances. Fills ``out`` and
+    returns (out, m, s), m and s (n_rows, G)."""
+    from ..ops.kde import kde_grid
+    from ..parallel.mesh import kde_fused_from_pairs
+
+    members = np.concatenate([np.asarray(m, dtype=np.int64)
+                              for m, _dev in pending])
+    flat = torch.cat([dev.to(device) for _m, dev in pending])
+    maxlen = pv.maxlens().astype(np.float64)
+    on_dev = np.zeros(len(pv), dtype=bool)
+    on_dev[members] = True
+    host_idx = np.nonzero(~on_dev & (rid < n_rows))[0]
+    ex_row = [int(r) for r, _s, _v in ex_entries] + rid[host_idx].tolist()
+    ex_slot = [int(s) for _r, s, _v in ex_entries] + slot[host_idx].tolist()
+    ex_val = np.concatenate([
+        np.asarray([v for _r, _s, v in ex_entries], dtype=np.float32),
+        (out[host_idx] / maxlen[host_idx]).astype(np.float32)])
+    xs = kde_grid(0.0025)
+    G = len(xs)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)
+                                ).to(device)
+
+    fused = kde_fused_from_pairs(
+        flat, f32(maxlen[members]), int32_tensor(rid[members], device),
+        int32_tensor(slot[members], device), int32_tensor(ex_row, device),
+        int32_tensor(ex_slot, device), f32(ex_val),
+        int32_tensor(nvals, device), f32(bw), f32(xs), n_pad, n_rows,
+        n_max=int(nvals.max())).cpu().numpy()
+    P = len(members)
+    out[members] = fused[:P].astype(np.int64)
+    m = fused[P : P + n_rows * G].reshape(n_rows, G)
+    s = fused[P + n_rows * G :].reshape(n_rows, G)
+    return out, m, s
+
+
 class EditDistanceEngine:
     """Exact batched Levenshtein and ends-free distances on one device."""
 
@@ -244,6 +292,20 @@ class EditDistanceEngine:
         self.collect_k1(pending, out)
         self.collect_ladders(pv, long_idx, rest, out)
         return out
+
+    def distances_collect_kde(self, handle, rid: np.ndarray,
+                              slot: np.ndarray, ex_entries,
+                              nvals: np.ndarray, bw: np.ndarray, n_rows: int,
+                              n_pad: int):
+        """``distances_collect`` with the batch's scaled KDE in the same
+        device-to-host copy (``collect_kde``): (out, m, s), or None when a
+        pair went to a ladder or none to K1 (the caller then collects and
+        runs the KDE in two steps, with the same results)."""
+        pv, pending, long_idx, rest, out = handle
+        if len(long_idx) or len(rest) or not pending:
+            return None
+        return collect_kde(pv, pending, out, self.device, rid, slot,
+                           ex_entries, nvals, bw, n_rows, n_pad)
 
     def _long_pair_route(self, pv: IndexedPairs, idx: np.ndarray,
                          out: np.ndarray) -> None:
@@ -516,6 +578,22 @@ class MeshEngine:
         for eng, _pending, lp, rp in shards:
             eng.collect_ladders(pv, lp, rp, out)
         return out
+
+    def distances_collect_kde(self, handle, rid: np.ndarray,
+                              slot: np.ndarray, ex_entries,
+                              nvals: np.ndarray, bw: np.ndarray, n_rows: int,
+                              n_pad: int):
+        """Every shard's K1 results gathered on the mesh's first device,
+        then ``collect_kde`` there: (out, m, s), or None when a pair went to
+        a ladder on any shard or none to K1."""
+        pv, shards, out = handle
+        if any(len(lp) or len(rp) for _e, _p, lp, rp in shards):
+            return None
+        pending = [item for _e, pend, _lp, _rp in shards for item in pend]
+        if not pending:
+            return None
+        return collect_kde(pv, pending, out, self.device, rid, slot,
+                           ex_entries, nvals, bw, n_rows, n_pad)
 
     # -- ends-free -----------------------------------------------------------
 

@@ -17,9 +17,10 @@ recomputes any region they do not hold for; hclust is float64 host math.
 So output is byte-identical to the JAX package's ``--device host`` path
 (emission stays in region order).
 
-On the CPU, ``-t`` > 1 with ``OTTER_TPU_FINISH_POOL=1`` sends the host half
-of each region to spawned worker processes (``_finish_worker.py``); on the
-card that setting raises. Under a coordinator
+With ``-t`` > 1 and ``OTTER_TPU_FINISH_POOL=1`` the host half of each
+region (hclust, reassignment, consensus) goes to spawned worker processes
+(``_finish_worker.py``) that touch no card; the distances, the reassignment
+jobs and the device KDE stay with this process's engine. Under a coordinator
 (``parallel/distributed.py``) each process handles its block of regions.
 """
 
@@ -33,7 +34,7 @@ import numpy as np
 from dataclasses import dataclass
 from typing import List, Optional, TextIO
 
-from ..config import OtterOpts, check_settings
+from ..config import OtterOpts
 from ..io.bam import BamReader
 from ..io.bed import BED, parse_bed_file
 from ..io.fasta import Faidx
@@ -217,16 +218,14 @@ def process_region_batch(params: OtterOpts, batch: List[RegionWork],
 
 
 def _dispatch_batch(params: OtterOpts, batch: List[RegionWork],
-                    dist_backend, pool=None):
+                    dist_backend):
     """Pool every region's pair workload and launch it asynchronously;
     returns the staged handle ``_finish_batch`` takes.
 
     The reassignment workload rides the same launch: its (unassigned i,
     labeled spanning j) pair set depends only on the valid/invalid read
     partition, not on the cluster labels, so its End2End pairs join the
-    pooled distance pairs and its ends-free jobs launch here too. With the
-    finish pool (``pool``) the workers derive those distances on the host
-    themselves, so none are launched."""
+    pooled distance pairs and its ends-free jobs launch here too."""
     from ..ops.consensus import reassignment_jobs
 
     # unique sequence pool by object identity: a region's pair set shares
@@ -261,7 +260,7 @@ def _dispatch_batch(params: OtterOpts, batch: List[RegionWork],
     pool_ef: list = []
     e2e_base = total
     for si, (work, _c, _s) in enumerate(spans):
-        if pool is not None or not work.invalid_indeces:
+        if not work.invalid_indeces:
             continue
         pseudo = [-1] * len(work.reads)
         for i in work.valid_indeces:
@@ -310,9 +309,11 @@ def _use_device_kde(engine, kde_regions) -> bool:
             and total_vals * 401 >= DEVICE_KDE_MIN_EVALS)
 
 
-def _device_kde(params: OtterOpts, engine, kde_regions) -> dict:
-    """Span index -> float64 densities from K8, every region certified
-    against the float64 oracle's decisions (ops/kde.py::
+def _device_kde(params: OtterOpts, engine, kde_regions,
+                scaled=None) -> dict:
+    """Span index -> float64 densities from K8 (``scaled``, the fused
+    collect's (m, s) rows, or one pooled K8 dispatch here), every region
+    certified against the float64 oracle's decisions (ops/kde.py::
     kde_decision_certified_scaled_batch); an uncertified region is
     recomputed by the float64 KDE, so clustering is byte-identical to the
     host path."""
@@ -322,10 +323,11 @@ def _device_kde(params: OtterOpts, engine, kde_regions) -> dict:
 
     values = [v for _si, v, _b in kde_regions]
     bws = [b for _si, _v, b in kde_regions]
-    devices = (getattr(engine, "mesh", None)
-               or getattr(engine, "device", None) or "cpu")
-    with metrics.phase("device_dispatch"), metrics.phase("kde_device"):
-        scaled = pooled_kde_scaled(values, bws, devices)
+    if scaled is None:
+        devices = (getattr(engine, "mesh", None)
+                   or getattr(engine, "device", None) or "cpu")
+        with metrics.phase("device_dispatch"), metrics.phase("kde_device"):
+            scaled = pooled_kde_scaled(values, bws, devices)
     region_dens: dict = {}
     fallback = []
     with metrics.phase("cluster_consensus"):
@@ -350,18 +352,97 @@ def _device_kde(params: OtterOpts, engine, kde_regions) -> dict:
     return region_dens
 
 
+def _kde_rows(params: OtterOpts, spans) -> list:
+    """(span index, bandwidth) of the batch's regions that otter_hclust
+    takes to the KDE (more than two valid reads, more than one allele)."""
+    rows = []
+    for si, (work, _c, _s) in enumerate(spans):
+        if params.max_alleles == 1 or len(work.valid_indeces) <= 2:
+            continue
+        bw = params.bandwidth_short
+        for i in work.valid_indeces:
+            if len(work.reads[i].seq) >= params.bandwidth_length:
+                bw = params.bandwidth_long
+                break
+        rows.append((si, bw))
+    return rows
+
+
+# the fused collect's largest (rows, grid, n_pad) KDE slab, as in the JAX
+# package
+FUSED_KDE_MAX_EVALS = 1 << 27
+
+
+def _fused_collect(engine, handle, spans, matrices, kde_rows, n_pairs):
+    """With OTTER_TPU_FUSED_KDE=1 (and OTTER_TPU_MESH_KDE not 0), the
+    distances and the batch's scaled KDE in one collect
+    (``engine.distances_collect_kde``: K8 reads the K1 results where they
+    lie, one device-to-host copy): (distances, m, s), or None when the
+    setting is off, the KDE slab is past FUSED_KDE_MAX_EVALS, or a pair
+    went to a ladder; the caller then takes the two-step route, which
+    gives the same bytes. Pair p of a KDE region fills its row's slot in
+    condensed order; the values of the regions without pairs (haplotag
+    grids) are scattered in as host-known entries."""
+    collect = getattr(engine, "distances_collect_kde", None)
+    if (handle is None or not kde_rows or collect is None
+            or os.environ.get("OTTER_TPU_MESH_KDE", "") == "0"
+            or os.environ.get("OTTER_TPU_FUSED_KDE", "") != "1"):
+        return None
+    n_rows = len(kde_rows)
+    rid = np.full(n_pairs, n_rows, dtype=np.int32)
+    slot = np.zeros(n_pairs, dtype=np.int32)
+    nvals = np.zeros(n_rows, dtype=np.int32)
+    bwv = np.zeros(n_rows, dtype=np.float32)
+    ex_entries = []
+    n_pad = 8
+    for r, (si, bw) in enumerate(kde_rows):
+        _work, coords, start = spans[si]
+        if coords is not None:
+            nv = len(coords)
+            rid[start : start + nv] = r
+            slot[start : start + nv] = np.arange(nv, dtype=np.int32)
+        else:
+            vals = matrices[si].values
+            nv = len(vals)
+            ex_entries.extend((r, k, np.float32(v))
+                              for k, v in enumerate(vals))
+        nvals[r] = nv
+        bwv[r] = bw
+        while n_pad < nv:
+            n_pad *= 2
+    if n_rows * 401 * n_pad > FUSED_KDE_MAX_EVALS:
+        return None
+    return collect(handle, rid, slot, ex_entries, nvals, bwv, n_rows, n_pad)
+
+
+def _precomputed(info, dists, ef_d, pair_maxlen):
+    """A region's reassignment distances from the batch's launches
+    (``_dispatch_batch``), or None when it has no unassigned reads."""
+    if info is None:
+        return None
+    pre, e2e_p, e2e_k, ef_j, ef_k, ef_n, eo, fo = info
+    for key, d, ml in zip(e2e_k, dists[eo : eo + len(e2e_p)],
+                          pair_maxlen[eo : eo + len(e2e_p)]):
+        pre[key] = d / ml
+    for key, d, nrm in zip(ef_k, ef_d[fo : fo + len(ef_j)], ef_n):
+        pre[key] = d / nrm
+    return pre
+
+
 def _finish_batch(params: OtterOpts, staged, dist_backend, out: TextIO,
                   pool=None) -> None:
     """Collect a ``_dispatch_batch`` handle and run the host half (KDE,
     cluster, reassignment, consensus, emission) for its regions in order;
-    with the finish pool (``pool``) the workers run it, region by region,
-    on the host."""
+    with the finish pool (``pool``) the workers run hclust, reassignment
+    and consensus, region by region, on the host, with the distances, the
+    reassignment distances and any device KDE computed here."""
     spans, all_pairs, handle, reassign_infos, ef_handle, e2e_base = staged
     from ..ops.consensus import consensus_apply_batched
     from ..ops.kde import kde_densities_batched, kde_grid
 
     engine = dist_backend.engine
     # non-pair spans (haplotag 0/1 grids, single-allele) fill on the host
+    # first: the fused collect scatters their values into its KDE rows
     matrices: List = [None] * len(spans)
     for idx, (work, coords, start) in enumerate(spans):
         if coords is None:
@@ -370,9 +451,17 @@ def _finish_batch(params: OtterOpts, staged, dist_backend, out: TextIO,
                 fill_dist_matrix(work.ignore_haps, work.reads,
                                  work.valid_indeces, distmatrix)
             matrices[idx] = distmatrix
+    kde_rows = _kde_rows(params, spans)
+    scaled = None
     with metrics.phase("device_dispatch"):
-        dists = engine.distances_collect(handle) if handle is not None \
-            else []
+        fused = _fused_collect(engine, handle, spans, matrices, kde_rows,
+                               len(all_pairs))
+        if fused is not None:
+            dists, kde_m, kde_s = fused
+            scaled = [(kde_m[r], kde_s[r]) for r in range(len(kde_rows))]
+        else:
+            dists = engine.distances_collect(handle) \
+                if handle is not None else []
 
     pair_maxlen = all_pairs.maxlens().astype(np.float64)
     dists_arr = np.asarray(dists, dtype=np.float64)
@@ -388,43 +477,42 @@ def _finish_batch(params: OtterOpts, staged, dist_backend, out: TextIO,
                                  / pair_maxlen[start : start + nv])
         matrices[idx] = distmatrix
 
-    if pool is not None:
-        # the reference's -t semantics over worker processes, which never
-        # touch the card: float64 KDE, hclust, host-DP reassignment and the
-        # native affine ladder with the python POA (_finish_worker.py)
-        from ._finish_worker import finish_region_worker
-
-        with metrics.phase("cluster_consensus"):
-            results = pool.map(
-                finish_region_worker,
-                [(params, work, dm.values)
-                 for (work, _c, _s), dm in zip(spans, matrices)])
-        for (work, _c, _s), (clustmsg, alleles) in zip(spans, results):
-            emit_region(params, work, clustmsg, alleles, out)
-        return
-
-    # per-region KDE densities, pooled across the batch, for the regions
-    # otter_hclust takes to the KDE
-    kde_regions = []
-    for si, (work, _c, _s) in enumerate(spans):
-        if params.max_alleles == 1 or len(work.valid_indeces) <= 2:
-            continue
-        bw = params.bandwidth_short
-        for i in work.valid_indeces:
-            if len(work.reads[i].seq) >= params.bandwidth_length:
-                bw = params.bandwidth_long
-                break
-        kde_regions.append((si, matrices[si].values, bw))
+    # per-region KDE densities, pooled across the batch: K8's certified
+    # rows (fused, or one dispatch once the batch is large), else the
+    # float64 KDE (in the workers, with the finish pool)
+    kde_regions = [(si, matrices[si].values, bw) for si, bw in kde_rows]
     region_dens: dict = {}
-    if kde_regions and _use_device_kde(engine, kde_regions):
-        region_dens = _device_kde(params, engine, kde_regions)
-    elif kde_regions:
+    if scaled is not None or (kde_regions
+                              and _use_device_kde(engine, kde_regions)):
+        region_dens = _device_kde(params, engine, kde_regions, scaled)
+    elif kde_regions and pool is None:
         with metrics.phase("cluster_consensus"), metrics.phase("kde_f64"):
             dens_list = kde_densities_batched(
                 [v for _si, v, _b in kde_regions],
                 [b for _si, _v, b in kde_regions], kde_grid(0.0025))
         region_dens = {si: d
                        for (si, _v, _b), d in zip(kde_regions, dens_list)}
+
+    if pool is not None:
+        # the reference's -t semantics over worker processes, which never
+        # touch the card: hclust (and the float64 KDE K8 did not give),
+        # reassignment and the native affine ladder with the python POA
+        # (_finish_worker.py)
+        from ._finish_worker import finish_region_worker
+
+        with metrics.phase("device_dispatch"):
+            ef_d = (engine.ends_free_collect(ef_handle)
+                    if ef_handle is not None else [])
+        with metrics.phase("cluster_consensus"):
+            results = pool.map(
+                finish_region_worker,
+                [(params, work, dm.values, region_dens.get(si),
+                  _precomputed(reassign_infos[si], dists, ef_d, pair_maxlen))
+                 for si, ((work, _c, _s), dm) in enumerate(
+                     zip(spans, matrices))])
+        for (work, _c, _s), (clustmsg, alleles) in zip(spans, results):
+            emit_region(params, work, clustmsg, alleles, out)
+        return
 
     # cluster every region; the reassignment distances rode the batch's
     # distance launch and its ends-free launch (_dispatch_batch)
@@ -444,14 +532,7 @@ def _finish_batch(params: OtterOpts, staged, dist_backend, out: TextIO,
     staged_regions = []
     all_tasks = []
     for work, distmatrix, clustmsg, labels, info in region_jobs:
-        pre = None
-        if info is not None:
-            pre, e2e_p, e2e_k, ef_j, ef_k, ef_n, eo, fo = info
-            for key, d, ml in zip(e2e_k, dists[eo : eo + len(e2e_p)],
-                                  pair_maxlen[eo : eo + len(e2e_p)]):
-                pre[key] = d / ml
-            for key, d, nrm in zip(ef_k, ef_d[fo : fo + len(ef_j)], ef_n):
-                pre[key] = d / nrm
+        pre = _precomputed(info, dists, ef_d, pair_maxlen)
         with metrics.phase("cluster_consensus"), \
                 metrics.phase("cluster_finish"):
             alleles, tasks = cluster_finish(params, work, distmatrix,
@@ -491,13 +572,13 @@ def _assemble_batched(params: OtterOpts, bed_regions: List[BED],
             if work is not None:
                 pending.append(work)
         if len(pending) >= DEFAULT_REGION_BATCH:
-            staged = _dispatch_batch(params, pending, dist_backend, pool)
+            staged = _dispatch_batch(params, pending, dist_backend)
             if in_flight is not None:
                 _finish_batch(params, in_flight, dist_backend, out, pool)
             in_flight = staged
             pending = []
     if pending:
-        staged = _dispatch_batch(params, pending, dist_backend, pool)
+        staged = _dispatch_batch(params, pending, dist_backend)
         if in_flight is not None:
             _finish_batch(params, in_flight, dist_backend, out, pool)
         in_flight = staged
@@ -519,22 +600,13 @@ def _make_dist_backend(params: OtterOpts,
     return TorchDistBackend(bind_device(params.device, process_index))
 
 
-def _finish_pool(params: OtterOpts, dist_backend):
-    """The opt-in finish pool (OTTER_TPU_FINISH_POOL=1), or None. Its
-    workers run each region's reassignment and consensus on the host, so
-    it is taken only on the CPU engine: on the card it raises, as it does
-    with -t 1, where it would have no workers."""
-    if os.environ.get("OTTER_TPU_FINISH_POOL") != "1":
+def _finish_pool(params: OtterOpts):
+    """The opt-in finish pool (OTTER_TPU_FINISH_POOL=1 at -t > 1, as the
+    JAX package makes it), or None: -t spawned workers for each region's
+    hclust, reassignment and consensus on the host. At -t 1 there is no
+    pool. This process keeps its engine, on any device."""
+    if os.environ.get("OTTER_TPU_FINISH_POOL") != "1" or params.threads <= 1:
         return None
-    device = (params.device if dist_backend is None
-              else str(dist_backend.engine.device))
-    if not device.startswith("cpu"):
-        raise RuntimeError("OTTER_TPU_FINISH_POOL=1 moves each region's "
-                           "host half off the card; the PyTorch port takes "
-                           "it only with --device cpu")
-    if params.threads <= 1:
-        raise RuntimeError("OTTER_TPU_FINISH_POOL=1 needs -t > 1 (the pool "
-                           "has -t worker processes)")
     import multiprocessing as mp
 
     return mp.get_context("spawn").Pool(params.threads)
@@ -547,15 +619,14 @@ def assemble_process(params: OtterOpts, bam_path: str, bed_regions: List[BED],
     the engine for ``params.device``; any object with an ``engine`` of the
     same surface runs the same pipeline. With -t > 1 and
     OTTER_TPU_FINISH_POOL=1 the host half of every region runs in a pool of
-    -t spawned worker processes, on the CPU engine only (``_finish_pool``)."""
-    check_settings()
-    pool = _finish_pool(params, dist_backend)
+    -t spawned worker processes (``_finish_pool``)."""
     sys.stderr.write(
         f"({antimestamp()}): Processing {bam_path} ({params.read_group})\n")
     if dist_backend is None:
         dist_backend = _make_dist_backend(params)
     bam = BamReader(bam_path, load_index=True)
     faidx = Faidx(reference) if reference else None
+    pool = _finish_pool(params)
     try:
         with metrics.phase("region_total"):
             _assemble_batched(params, bed_regions, bam, faidx, reads_only,
@@ -680,7 +751,6 @@ def assemble(bam_path: str, bed: str, reference: str, reads_only: bool,
     from ..parallel.distributed import (gather_enabled, gather_text_to_writer,
                                         process_group, shard_regions)
 
-    check_settings()
     if out is None:
         out = sys.stdout
     bed_regions = parse_bed_file(bed)

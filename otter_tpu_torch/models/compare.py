@@ -16,7 +16,7 @@ import sys
 from dataclasses import dataclass
 from typing import Dict, List, Optional, TextIO
 
-from ..config import OtterOpts, check_settings
+from ..config import OtterOpts
 from ..io.bam import BamReader
 from ..io.bed import BED, parse_bed_file
 from ..io.sample_index import SampleIndex
@@ -130,7 +130,6 @@ def compare(params: OtterOpts, bed_file: str, reference: str, target: str,
     (``dist_backend`` defaults to the engine for ``params.device``);
     ``pooled=False`` runs the scalar host DP of every pair instead, the
     path the pooled one must equal byte for byte."""
-    check_settings()
     if out is None:
         out = sys.stdout
     if pooled and dist_backend is None:

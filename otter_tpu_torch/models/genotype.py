@@ -25,7 +25,7 @@ from typing import List, Optional, TextIO, Tuple
 
 import numpy as np
 
-from ..config import OtterOpts, check_settings
+from ..config import OtterOpts
 from ..io.bam import BamReader
 from ..io.bed import BED, parse_bed_file
 from ..io.fasta import Faidx
@@ -501,7 +501,6 @@ def genotype(params: OtterOpts, bam_path: str, bed: str, reference: str,
                                         gather_text_to_writer, process_group,
                                         shard_regions)
 
-    check_settings()
     if params.device not in DEVICES:
         raise ValueError(f"device must be one of {DEVICES}, "
                          f"not {params.device!r}")

@@ -262,18 +262,46 @@ class PoaTask:
             self.allele.seq = "N"
 
 
+def _route(flat: List[tuple], engine) -> tuple:
+    """(K5 or not, the jobs to seed with a band hint) for the consensus
+    jobs ``flat``, by the JAX package's rules for an accelerator engine
+    (otter_tpu/ops/consensus.py:294-378), K5 in the place of its kernel:
+    K5 unless OTTER_TPU_AFFINE_DEVICE=0; hints for every job with K5, none
+    without, unless OTTER_TPU_AFFINE_HINTS=1 (every job) or =0 (none);
+    without K5 and with neither, the long jobs (a side >= 512 bp) when
+    their texts reach 50,000 bp. No kernel engine: the ladder, no hints.
+    The JAX package's round-trip probe that picks its default is not
+    ported: with nothing set, K5 with every job seeded."""
+    if not flat or getattr(engine, "device", None) is None:
+        return False, []
+    use_k5 = os.environ.get("OTTER_TPU_AFFINE_DEVICE", "") != "0"
+    env_hints = os.environ.get("OTTER_TPU_AFFINE_HINTS", "")
+    if env_hints == "1" or (env_hints == "" and use_k5):
+        return use_k5, list(range(len(flat)))
+    if env_hints == "":
+        long_idx = [i for i, j in enumerate(flat)
+                    if max(len(j[0]), len(j[1])) >= 512]
+        if sum(len(flat[i][1]) for i in long_idx) >= 50_000:
+            return use_k5, long_idx
+    return use_k5, []
+
+
 def consensus_apply_batched(tasks: List["PoaTask"], engine=None) -> None:
     """Align every task's members to their representative in one batch,
     then build each POA.
 
-    With a kernel engine (``engine.device`` set) the exact ends-free
-    distance of every job is computed first (one engine dispatch) and seeds
-    each member's band; the cigars come from the affine traceback kernel
-    (kernels/affine_tb.py, K5), and the members it cannot prove optimal
-    take the native band ladder (ops/align_batch.py), which computes the
-    same cigar. Without one, every member takes the ladder. The POAs then
-    take the native C++ PPOA, or with OTTER_TPU_POA_DEVICE=1 the Python
-    graph build and K12's heaviest-path DP on the engine's device."""
+    With a kernel engine (``engine.device`` set) the cigars come from the
+    affine traceback kernel (kernels/affine_tb.py, K5), each member's band
+    seeded by its exact ends-free distance (one engine dispatch), and the
+    members it cannot prove optimal take the native band ladder
+    (ops/align_batch.py), which computes the same cigar. Without one, every
+    member takes the ladder. The JAX package's settings route as there,
+    with K5 in the place of its accelerator kernel (``_route``):
+    OTTER_TPU_AFFINE_DEVICE=0 sends every member to the ladder, and
+    OTTER_TPU_AFFINE_HINTS=0 / =1 turn the band seeds off / on for every
+    job. The cigars are the same either way. The POAs then take the native
+    C++ PPOA, or with OTTER_TPU_POA_DEVICE=1 the Python graph build and
+    K12's heaviest-path DP on the engine's device."""
     from .align_batch import affine_cigars_multi
 
     flat: List[tuple] = []
@@ -284,24 +312,31 @@ def consensus_apply_batched(tasks: List["PoaTask"], engine=None) -> None:
         flat.extend(jobs)
     from ..utils import metrics
 
-    if flat and getattr(engine, "device", None) is not None:
-        from ..kernels.affine_tb import affine_cigars_tb
-
+    use_k5, hint_idx = _route(flat, engine)
+    hints = None
+    if hint_idx:
         with metrics.phase("consensus_hints"):
-            hints = [int(d) for d in engine.ends_free(flat)]
-        with metrics.phase("consensus_affine"):
+            hints = [None] * len(flat)
+            for i, d in zip(hint_idx,
+                            engine.ends_free([flat[i] for i in hint_idx])):
+                hints[i] = int(d)
+    with metrics.phase("consensus_affine"):
+        if use_k5:
+            from ..kernels.affine_tb import affine_cigars_tb
+
             cigars, failed = affine_cigars_tb(flat, engine.device, hints)
+        else:
+            cigars, failed = [""] * len(flat), list(range(len(flat)))
+        if getattr(engine, "device", None) is not None:
             engine.jobs_k5 += len(flat) - len(failed)
             engine.jobs_affine_host += len(failed)
-            if failed:
-                redo = affine_cigars_multi([flat[i] for i in failed],
-                                           dist_hints=[hints[i]
+        if failed:
+            redo = affine_cigars_multi(
+                [flat[i] for i in failed],
+                dist_hints=None if hints is None else [hints[i]
                                                        for i in failed])
-                for i, cig in zip(failed, redo):
-                    cigars[i] = cig
-    else:
-        with metrics.phase("consensus_affine"):
-            cigars = affine_cigars_multi(flat)
+            for i, cig in zip(failed, redo):
+                cigars[i] = cig
     # device heaviest-path DP (ops/poa_device.py, K12): graphs build on the
     # host, the consensus DP of the whole allele batch runs as one launch a
     # device (the engine's card or mesh; K12's plain version on the CPU).

@@ -1,7 +1,11 @@
 """The in-process device mesh, and the pooled device KDE over it.
 
 Counterpart of the JAX package's ``otter_tpu/parallel/mesh.py``
-(``make_mesh``, ``shard_pair_batch``, ``pooled_kde_scaled``). A mesh here
+(``make_mesh``, ``shard_pair_batch``, ``pooled_kde_scaled``, the sharded
+forward step ``region_batch_step`` / ``run_sharded_region_step`` with
+kernels K7 and K14, and the fused collect's ``kde_fused_from_pairs``; the
+unscaled KDE ``kde_tree_step`` is ``kernels/kde_scaled.py::kde_tree``,
+K13). A mesh here
 is an ordered tuple of ``torch.device``s: ``make_mesh`` gives the visible
 cards, capped by ``OTTER_TPU_MESH_DEVICES`` as the JAX package caps its
 local devices, and a caller may pass any devices instead (the tests' CPU
@@ -25,6 +29,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.edit_banded import edit_banded
+from ..kernels.kde_pairs import kde_pairs, linspace_grid
 from ..kernels.kde_scaled import kde_scaled
 from ..ops.kde import kde_grid
 
@@ -124,3 +130,78 @@ def pooled_kde_scaled(value_lists, bandwidths, devices,
         for row, i in enumerate(spans[dev]):
             out[i] = (flat[row, :G], flat[row, G:])
     return out
+
+
+def shard_pair_batch(mesh, arrays) -> list:
+    """Each shard's contiguous row block of every array (numpy or torch,
+    rows on the first axis) on the shard's device, one list a shard of
+    ``mesh`` (``shard_rows``)."""
+    mesh = as_mesh(mesh)
+    tensors = [torch.as_tensor(a) for a in arrays]
+    return [[t[lo:hi].to(dev) for t in tensors]
+            for dev, (lo, hi) in zip(mesh, shard_rows(len(tensors[0]),
+                                                      mesh))]
+
+
+def region_batch_step(a, bpad, m, n, region_id, pair_valid, bandwidth,
+                      k: int, max_rows: int, n_regions: int,
+                      grid_pts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One forward step of the assemble math on the device the tensors lie
+    on, as the JAX function: the banded edit distances of a cross-region
+    pair batch (K7; INF = 2^24 where the band is too narrow), then the
+    per-region KDE densities over ``linspace(0, 1, grid_pts)`` (K14). a
+    (B, L) and bpad (B, L + W + 2) int32 codes in the JAX package's
+    ``_pack_bucket`` layout (``max_rows`` = L), m, n, region_id (B,)
+    int32, pair_valid (B,) bool, bandwidth (n_regions,) f32. Returns
+    (dists (B,) int32, densities (n_regions, grid_pts) f32)."""
+    return run_sharded_region_step((a.device,), a, bpad, m, n, region_id,
+                                   pair_valid, bandwidth, k, max_rows,
+                                   n_regions, grid_pts)
+
+
+def run_sharded_region_step(mesh, a, bpad, m, n, region_id, pair_valid,
+                            bandwidth, k: int, max_rows: int, n_regions: int,
+                            grid_pts: int = 401
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``region_batch_step`` with the pair axis split over ``mesh`` (a
+    mesh, or one device): each shard's K7 launch on its own device, every
+    shard launched before any is read; then the distances gathered on the
+    mesh's first device and K14 launched once there, so the densities are
+    the same bits at every mesh size. Inputs numpy or torch; returns
+    (dists, densities) on the first device."""
+    mesh = as_mesh(mesh)
+    if max_rows != np.shape(a)[1] or np.shape(bandwidth) != (n_regions,):
+        raise ValueError("max_rows must be the width of a, bandwidth "
+                         "(n_regions,)")
+    launched = [edit_banded(a_s, b_s, torch.stack([m_s, n_s], 1).contiguous(),
+                            k)
+                for a_s, b_s, m_s, n_s in shard_pair_batch(mesh,
+                                                           [a, bpad, m, n])]
+    head = mesh[0]
+    dists = torch.cat([d.to(head) for d in launched])
+    m0, n0, rid0, pv0, bw0 = (torch.as_tensor(x).to(head) for x in (
+        m, n, region_id, pair_valid, bandwidth))
+    xs = torch.from_numpy(linspace_grid(grid_pts)).to(head)
+    return dists, kde_pairs(dists, m0, n0, rid0, pv0, bw0, xs)
+
+
+def kde_fused_from_pairs(flat, mlen, rid_m, slot_m, ex_row, ex_slot, ex_val,
+                         nvals, bw, xs, n_pad: int, n_rows: int,
+                         n_max: Optional[int] = None) -> torch.Tensor:
+    """The scaled per-region KDE (K8) computed from pair distances where
+    they lie (the fused collect's tail, as the JAX function): the f32
+    divide of each distance by its pair's longer length, a scatter into
+    the (n_rows + 1, n_pad) value grid (the host-known exceptional entries
+    first, then the pairs; the last row takes the excluded pairs), then K8
+    on the first n_rows rows. flat (P,) int32, mlen (P,) f32, rid_m /
+    slot_m (P,) int32, ex_* (E,) int32 / f32, nvals (n_rows,) int32, bw
+    (n_rows,) f32, xs (G,) f32, all on one device; ``n_max`` the largest
+    nvals (K8 sizes its stage with it). Returns (P + 2 n_rows G,) f32:
+    [distances, m.ravel(), s.ravel()]."""
+    f = flat.to(torch.float32)
+    vals = torch.zeros((n_rows + 1, n_pad), dtype=torch.float32,
+                       device=f.device)
+    vals[ex_row.long(), ex_slot.long()] = ex_val
+    vals[rid_m.long(), slot_m.long()] = f / mlen
+    m, s = kde_scaled(vals[:-1], nvals, bw, xs, n_max)
+    return torch.cat([f, m.reshape(-1), s.reshape(-1)])

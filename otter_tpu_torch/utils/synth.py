@@ -11,7 +11,9 @@ reads carry N bases in the allele. With neither option the data equal
 ``bench_e2e.build_ont_fixture``'s for the same arguments.
 
 ``cohort_fixture`` writes ``bench_e2e.build_cohort_fixture``'s merged
-cohort BAM, BED and reference FASTA, byte for byte.
+cohort BAM, BED and reference FASTA, byte for byte, and ``region_fixture``
+``bench_e2e.build_fixture``'s short tandem-repeat regions (the JAX
+package's regions bench leg and multichip dry run).
 """
 
 from __future__ import annotations
@@ -293,3 +295,59 @@ def compare_fixture(tmp: str, n_regions: int, seed: int, lo: int = 300,
         index_bam(path)
         sams[sample] = path
     return sams["T1"], sams["Q1"], bed
+
+
+def region_fixture(tmp: str, n_regions: int = 100, cov: int = 12,
+                   err: float = 0.01, region_len: int = 120, seed: int = 11
+                   ) -> Tuple[str, str, str]:
+    """``reads.bam`` (indexed), ``regions.bed`` and ``ref.fa`` under
+    ``tmp``, byte for byte ``bench_e2e.build_fixture``'s: regions of
+    ``region_len`` bp 2,500 bp apart; even regions het for a CAG run of
+    region_len / 6 + 20 units (cov / 2 + 2 reads an allele), odd ones hom-ref
+    (cov reads); every read walks 200-400 bp flanks and its allele at error
+    rate ``err``, with an rq tag of 0.999. Returns (bam, bed, fasta)."""
+    rng = random.Random(seed)
+    nprng = np.random.Generator(np.random.PCG64(seed * 104729 + 7))
+    span = 2500
+    ref_len = 1000 + n_regions * span + 2000
+    ref = _NT[nprng.integers(0, 4, ref_len)].tobytes().decode("latin-1")
+    bed = os.path.join(tmp, "regions.bed")
+    records: List[BamRecord] = []
+    with open(bed, "w") as fh:
+        for r in range(n_regions):
+            start = 1000 + r * span
+            end = start + region_len
+            fh.write(f"chr1\t{start}\t{end}\n")
+            alleles = [ref[start:end]]
+            if r % 2 == 0:
+                alleles.append("CAG" * (region_len // 2 // 3 + 20))
+            for a_i, allele in enumerate(alleles):
+                n_reads = cov if len(alleles) == 1 else cov // 2 + 2
+                for c in range(n_reads):
+                    lf = rng.randint(200, 400)
+                    rf = rng.randint(200, 400)
+                    out: List[str] = []
+                    cig: List[Tuple[int, int]] = []
+                    noisy_walk(ref[start - lf : start], err, nprng, out, cig)
+                    consumed = noisy_walk(allele, err, nprng, out, cig)
+                    if consumed > region_len:
+                        cig = _project(cig, consumed, region_len)
+                    elif consumed < region_len:
+                        if cig and cig[-1][1] == BAM_CDEL:
+                            cig[-1] = (cig[-1][0] + region_len - consumed,
+                                       BAM_CDEL)
+                        else:
+                            cig.append((region_len - consumed, BAM_CDEL))
+                    noisy_walk(ref[end : end + rf], err, nprng, out, cig)
+                    rec = read_record(f"r{r}_{a_i}_{c}", start - lf,
+                                      "".join(out), cig)
+                    rec.aux = bytes(encode_aux("rq", "f", 0.999))
+                    records.append(rec)
+    bam = os.path.join(tmp, "reads.bam")
+    write_bam(bam, ref_len, records)
+    fa = os.path.join(tmp, "ref.fa")
+    with open(fa, "w") as fh:
+        fh.write(">chr1\n")
+        for i in range(0, len(ref), 60):
+            fh.write(ref[i : i + 60] + "\n")
+    return bam, bed, fa

@@ -247,6 +247,14 @@ def build_emulated(tmp_path_factory, source: str,
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     with open(source) as fh:
         src = fh.read()
+    # the package's headers inline, so their launches are rewritten too
+    src_dir = SOURCE.rsplit("/", 1)[0]
+
+    def header(match):
+        with open(f"{src_dir}/{match.group(1)}") as fh:
+            return fh.read()
+
+    src = re.sub(r'#include "(\w+\.cuh)"', header, src)
     # kernel<L, E><<<grid, block, smem, stream>>>(args) -> emu::launch(...)(args)
     src = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(",
                  r"emu::launch(\1, \2)(", src, flags=re.S)

@@ -754,3 +754,128 @@ def test_assemble_poa_device_cuda_byte_identical(cuda_device, tmp_path,
         assert (K12.poa_heaviest_cuda.launches > before) == (env == "1")
         texts.append(out.getvalue())
     assert texts[0] == texts[1] and texts[0]
+
+
+@pytest.mark.parametrize("shape", K8_SHAPES)
+def test_kde_tree_cuda_matches_plain(cuda_device, shape):
+    """K13 on the card against its plain version on the card: a relative
+    1e-6 a cell (expf against torch.exp; the same halving orders), an
+    absolute 1e-30 for subnormals; every W and C give the same bits."""
+    from otter_tpu_torch.kernels import kde_scaled as K8
+
+    R, n = shape
+    args = _k8_args(cuda_device, R, n)
+    before = K8.kde_tree_cuda.launches
+    got = K8.kde_tree(*args, n_max=n)
+    assert K8.kde_tree_cuda.launches == before + 1
+    torch.testing.assert_close(got, K8.kde_tree_torch(*args), rtol=1e-6,
+                               atol=1e-30)
+    for C in K8.CELLS:
+        for W in (1, 16):
+            assert torch.equal(got, K8.kde_tree_cuda(*args, n_max=n,
+                                                     warps=W, cells=C))
+
+
+@pytest.mark.parametrize("n_pairs,n_regions", [(40, 3), (11904, 128),
+                                               (5000, 2)])
+def test_kde_pairs_cuda_matches_plain(cuda_device, n_pairs, n_regions):
+    """K14 on the card against its plain version on the card, regions
+    interleaved, INF and invalid pairs included: a relative 1e-6 a cell,
+    an absolute 1e-30 for subnormals."""
+    from otter_tpu_torch.kernels import kde_pairs as K14
+
+    rng = np.random.default_rng(n_pairs)
+    m = rng.integers(80, 300, n_pairs).astype(np.int32)
+    n = (m + rng.integers(-5, 6, n_pairs)).astype(np.int32)
+    d = (rng.random(n_pairs) * 0.05 * m).astype(np.int32)
+    d[rng.random(n_pairs) < 0.05] = 1 << 24
+    rid = rng.integers(0, n_regions, n_pairs).astype(np.int32)
+    valid = rng.random(n_pairs) > 0.1
+    bw = np.where(np.arange(n_regions) % 2, 0.015, 0.01).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (
+        d, m, n, rid, valid, bw, K14.linspace_grid(401))]
+    before = K14.kde_pairs_cuda.launches
+    got = K14.kde_pairs(*args)
+    assert K14.kde_pairs_cuda.launches == before + 1
+    torch.testing.assert_close(got, K14.kde_pairs_torch(*args), rtol=1e-6,
+                               atol=1e-30)
+
+
+def test_sharded_step_cuda_two_shards(cuda_device):
+    """The sharded step on the card and on two shards of it: distances
+    equal to K7's plain version, densities the same bits on both meshes
+    and within a relative 1e-6 of the plain versions' step on the CPU."""
+    from otter_tpu_torch.parallel.dryrun import example_pair_batch
+    from otter_tpu_torch.parallel.mesh import run_sharded_region_step
+
+    a, bp, mn, rid, valid, k, L = example_pair_batch(n_pairs=64)
+    bw = np.full(2, 0.01, dtype=np.float32)
+    args = (a, bp, mn[:, 0], mn[:, 1], rid, valid, bw)
+    outs = [run_sharded_region_step(mesh, *args, k=k, max_rows=L,
+                                    n_regions=2)
+            for mesh in ((cuda_device,), (cuda_device, cuda_device), (CPU,))]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(outs[0][0].cpu(), outs[2][0])
+    torch.testing.assert_close(outs[0][1].cpu(), outs[2][1], rtol=1e-6,
+                               atol=1e-30)
+
+
+@pytest.mark.parametrize("two_shards", [False, True])
+def test_dryrun_multichip_cuda(cuda_device, two_shards):
+    """The port's dry run on the card's mesh and on two shards of card 0:
+    every check passes (its assemble and genotype byte-identical to the
+    CPU run)."""
+    from otter_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    if two_shards:
+        out = dryrun_multichip(2, (cuda_device, cuda_device))
+    else:
+        out = dryrun_multichip(1)
+    assert out["vcf_rows"] >= 6
+
+
+@pytest.mark.parametrize("env", [{"OTTER_TPU_FUSED_KDE": "1"},
+                                 {"OTTER_TPU_AFFINE_DEVICE": "0"},
+                                 {"OTTER_TPU_AFFINE_HINTS": "0"},
+                                 {"OTTER_TPU_AFFINE_HINTS": "1"}])
+def test_assemble_settings_cuda_byte_identical(cuda_device, tmp_path,
+                                               monkeypatch, env):
+    """assemble on the card under the fused collect and the consensus
+    settings writes the default route's bytes; K8 launches with the fused
+    collect, K5 never with OTTER_TPU_AFFINE_DEVICE=0."""
+    from otter_tpu_torch.kernels import kde_scaled as K8
+
+    bam, bed = _tandem_loci(tmp_path)
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "1")
+    want = _port_assemble(bam, bed, "cuda")
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    k5, k8 = K5.affine_tb_cuda.launches, K8.kde_scaled_cuda.launches
+    assert _port_assemble(bam, bed, "cuda") == want
+    assert K8.kde_scaled_cuda.launches > k8
+    assert (K5.affine_tb_cuda.launches == k5) == \
+        (env.get("OTTER_TPU_AFFINE_DEVICE") == "0")
+
+
+def test_assemble_finish_pool_cuda_byte_identical(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """OTTER_TPU_FINISH_POOL=1 at -t 2 on the card: two spawned workers
+    take the host half, this process launches K1 and K8, and the bytes
+    are the -t 1 run's."""
+    from otter_tpu_torch.config import OtterOpts as PortOpts
+    from otter_tpu_torch.kernels import kde_scaled as K8
+
+    bam, bed = _tandem_loci(tmp_path)
+    monkeypatch.setenv("OTTER_TPU_MESH_KDE", "1")
+    want = _port_assemble(bam, bed, "cuda")
+    monkeypatch.setenv("OTTER_TPU_FINISH_POOL", "1")
+    k1, k8 = K1.myers_pool_cuda.launches, K8.kde_scaled_cuda.launches
+    p = PortOpts()
+    p.read_group = "S1"
+    p.init_threads(2)
+    out = io.StringIO()
+    assemble(bam, bed, "", False, p, out=out)
+    assert out.getvalue() == want
+    assert K1.myers_pool_cuda.launches > k1
+    assert K8.kde_scaled_cuda.launches > k8

@@ -78,9 +78,10 @@ def test_threads_byte_identical(all_fixtures, name, variant):
 @pytest.mark.parametrize("name", ["het", "loci6"])
 def test_finish_pool_byte_identical(all_fixtures, name, monkeypatch):
     """OTTER_TPU_FINISH_POOL=1 -t 2: two spawned workers take the host half
-    of every region (float64 KDE, hclust, host-DP reassignment, native
-    affine ladder, python POA) and the bytes are -t 1's and otter_tpu's;
-    no consensus member went to K5, so the pool did the work."""
+    of every region (float64 KDE, hclust, reassignment with the distances
+    this process's engine gave, native affine ladder, python POA) and the
+    bytes are -t 1's and otter_tpu's; no consensus member went to K5, so
+    the pool did the work."""
     fx = all_fixtures[name]
     want = _run(reference_assemble, fx, "sam")
     assert _run(assemble, fx, "sam", threads=1) == want
