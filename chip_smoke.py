@@ -96,14 +96,19 @@ exits non-zero:
    ``OTTER_TPU_NATIVE_HCLUST=0 OTTER_TPU_HCLUST_DEVICE=1`` (its tie-full
    matrices: K11's launches and the guard's declines printed) and a
    16-sample cohort of 8 VNTR loci (a length allele a haplotype: tie-free
-   length matrices, on which K11 must launch), hifi-tr-1.5k in mesh mode
+   length matrices, on which K11 must launch) and a 128-sample cohort of 4
+   (distinct prime lengths, ``-e 0.1``: K11's cluster route must launch),
+   hifi-tr-1.5k in mesh mode
    on two shards of card 0 with ``OTTER_TPU_POA_DEVICE=1`` (K12 on each
    shard); then each kernel exact against its plain version and timed:
    K10 on the two cohorts' allele batches (k = 3) and at k = 8 (the
    device-memory histogram), with ``torch.bincount`` of the window keys as
-   its library call; K11 on seeded tie-free matrices at n = 129 and 1,001,
-   partitions equal to the native NN-chain's at three cuts; K12 on the
-   graphs of the hifi-tr-1.5k and refscale runs;
+   its library call; K11 on seeded tie-free matrices at n = 129 and 1,001
+   (the route each takes, bit for bit the L2 route's, the one-block
+   kernel with D in device memory, and timed beside it), partitions equal
+   to the native NN-chain's at three cuts; K12 on the graphs of the
+   hifi-tr-1.5k and refscale runs (the route, bit for bit the global
+   route's, a warp a graph level by level, timed beside);
 10. the sharded forward step (``parallel/mesh.py::run_sharded_region_step``:
    K7 a shard, K14 on the first card) on the mesh of every visible card
    and on two shards of card 0, at the JAX dry run's shapes and at the
@@ -1690,8 +1695,10 @@ def phase_full(tmp: str, fixtures: list, oracle):
 # ---------------------------------------------------------------------------
 
 
-def genotype_text(bam, bed, fa, device="cuda", batched=True):
-    """(wall s, VCF text, metrics snapshot) of one port genotype run."""
+def genotype_text(bam, bed, fa, device="cuda", batched=True,
+                  max_error=None):
+    """(wall s, VCF text, metrics snapshot) of one port genotype run
+    (``max_error``: genotype's -e, the length cut)."""
     import torch
 
     from otter_tpu_torch.config import OtterOpts
@@ -1700,6 +1707,8 @@ def genotype_text(bam, bed, fa, device="cuda", batched=True):
 
     p = OtterOpts()
     p.device = device
+    if max_error is not None:
+        p.init_max_error(max_error)
     out = io.StringIO()
     metrics.reset()
     t0 = time.perf_counter()
@@ -2309,14 +2318,18 @@ def opt_in_run(what: str, fn, want: str, kernel: str, **env):
     wrappers = opt_in_wrappers()
     for w in wrappers.values():
         w.launches = 0
+        if hasattr(w, "routes"):
+            w.routes = dict.fromkeys(w.routes, 0)
     with Settings(**env):
         t0 = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = {k: w.launches for k, w in wrappers.items()}
+    routes = {k: w.routes for k, w in wrappers.items()
+              if getattr(w, "routes", None) and w.launches}
     log(f"{what}: wall {wall:.3f} s, identical: {got == want}; launches "
-        f"{json.dumps(launched)}")
+        f"{json.dumps(launched)}, by route {json.dumps(routes)}")
     check(got == want, f"{what}: the output differs")
     check(launched[kernel] > 0, f"{what}: {kernel} did not launch")
     return wall, launched
@@ -2389,6 +2402,28 @@ def opt_in_entry_points(tmp: str, fixtures: list, runs: dict, g64: dict,
     snap = metrics.snapshot()
     log(f"vntr16: matrices on K11 {int(snap.get('count.hclust_device', 0))},"
         f" declined {int(snap.get('count.hclust_device_declined', 0))}")
+    launches["linkage"] += got["linkage"]
+    # 128 samples (n = 257): K11's cluster route; the haplotypes' distinct
+    # prime lengths make the length matrices tie-free, and a length cut of
+    # 0.1 (genotype -e 0.1) keeps every merge height clear of the cut
+    d = os.path.join(tmp, "vntr128")
+    os.makedirs(d)
+    vbam, vbed, vfa = cohort_fixture(d, 128, 4, 41, vntr=True,
+                                     prime_lengths=True)
+    want = genotype_text(vbam, vbed, vfa, max_error=0.1)[1]
+    metrics.reset()
+    _wall, got = opt_in_run(
+        "vntr128 (128 samples x 4 VNTR regions, prime lengths, -e 0.1), "
+        "OTTER_TPU_NATIVE_HCLUST=0 OTTER_TPU_HCLUST_DEVICE=1",
+        lambda: genotype_text(vbam, vbed, vfa, max_error=0.1)[1], want,
+        "linkage", OTTER_TPU_NATIVE_HCLUST="0", OTTER_TPU_HCLUST_DEVICE="1")
+    snap = metrics.snapshot()
+    on_cluster = opt_in_wrappers()["linkage"].routes["cluster"]
+    log(f"vntr128: matrices on K11 "
+        f"{int(snap.get('count.hclust_device', 0))}, declined "
+        f"{int(snap.get('count.hclust_device_declined', 0))}; launches on "
+        f"the cluster route {on_cluster}")
+    check(on_cluster > 0, "vntr128: K11's cluster route did not launch")
     launches["linkage"] += got["linkage"]
     # mesh mode: the graph axis split over two shards of card 0
     with Recorder(poa_device, "poa_heaviest") as rec:
@@ -2500,21 +2535,34 @@ def kernel_k11(dev) -> dict:
         check(same and parts, f"K11 at n = {n}: kernel == plain {same}, "
               f"partitions equal to the native NN-chain's {parts}")
         ms = time_ms(lambda: K11.linkage_cuda(D), 5)
+        route, cluster, smem = K11.linkage_plan(n)
+        # the one-block kernel with D in device memory: the same bits, and
+        # its time
+        recs_l2, hs_l2 = K11.linkage_cuda(D, route="l2")
+        same_l2 = bool(torch.equal(recs, recs_l2)) and bool(torch.equal(
+            hs.view(torch.int32), hs_l2.view(torch.int32)))
+        check(same_l2, f"K11 at n = {n}: the {route} route differs from "
+              "the L2 route")
+        l2_ms = time_ms(lambda: K11.linkage_cuda(D, route="l2"), 5)
         # operations: per step the pair's pass over the active rows and the
-        # merged row (mul, fma, div a column); bytes: D once, the records
+        # merged row (mul, fma, div a column); bytes: D's upper triangle
+        # once (D is symmetric, so the function needs no more of it), the
+        # records
         steps = n - 1
         ops = sum(4 * (n - k) for k in range(steps))
         t_ops = ops / (F32_LANES * CARD["sm_hz"]) * 1e3
-        t_bytes = (4 * n * n + 12 * steps) / HBM_BYTES_PER_S * 1e3
+        t_bytes = (2 * n * (n - 1) + 12 * steps) / HBM_BYTES_PER_S * 1e3
         b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
                                                                 "bytes")
         shown = [round(float(c), 6) for c in cuts]
-        log(f"K11 linkage, n = {n} ({steps} dependent steps, D in "
-            f"{'shared' if n <= 220 else 'device'} memory): kernel == plain "
-            f"{same}, max |diff| {err} (tolerance 0); partitions equal to "
-            f"the native NN-chain's at cuts {shown}: {parts}; kernel "
-            f"{ms:.4f} ms ({1e3 * ms / steps:.3f} us a "
-            f"step), plain {plain_ms:.1f} ms; bound {b:.5f} ms by {by}, "
+        log(f"K11 linkage, n = {n} ({steps} dependent steps; route "
+            f"{route}, {cluster} block(s) of {smem} B of shared memory): "
+            f"kernel == plain {same}, max |diff| {err} (tolerance 0), == "
+            f"the L2 route {same_l2}; partitions equal to the native "
+            f"NN-chain's at cuts {shown}: {parts}; kernel {ms:.4f} ms "
+            f"({1e3 * ms / steps:.3f} us a step), the L2 route (D in "
+            f"device memory) {l2_ms:.4f} ms ({1e3 * l2_ms / steps:.3f} us "
+            f"a step), plain {plain_ms:.1f} ms; bound {b:.5f} ms by {by}, "
             f"{100 * b / ms:.4f}% of it; library call: none")
         out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b, "bound_by": by, "library_ms": None}
@@ -2539,8 +2587,22 @@ def kernel_k12(graphs: dict) -> dict:
         err = float(max((h - h_p).abs().max(), (me - me_p).abs().max()))
         check(same, f"K12 disagrees with its plain version ({name})")
         ms = time_ms(lambda: K12.poa_heaviest_cuda(batch), 5)
-        n_edges = int(batch.e_src.shape[0])
-        moved = nbytes(*batch[:7]) + 8 * batch.node_of.shape[0]
+        route = "stream" if K12.stream_fits(batch) else "global"
+        # the device-memory kernel, a warp a graph level by level: the
+        # same bits
+        h_g, me_g = K12.poa_heaviest_cuda(batch, route="global")
+        same_g = bool(torch.equal(h.view(torch.int32),
+                                  h_g.view(torch.int32))
+                      and torch.equal(me, me_g))
+        check(same_g, f"K12 ({name}): the {route} route differs from the "
+              "global route")
+        global_ms = time_ms(
+            lambda: K12.poa_heaviest_cuda(batch, route="global"), 5)
+        n_edges = int(batch.e_rec.shape[0])
+        # the node order, in-edge bounds, edge records and graph table in,
+        # h and min_eid out (the level bounds only the walk by levels needs)
+        moved = (nbytes(batch.node_of, batch.in_ptr, batch.e_rec, batch.meta)
+                 + 8 * batch.node_of.shape[0])
         t_ops = 2 * n_edges / (F32_LANES * CARD["sm_hz"]) * 1e3
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
@@ -2548,10 +2610,13 @@ def kernel_k12(graphs: dict) -> dict:
         levels = batch.max_depth + 1
         log(f"K12 poa_heaviest, {name} ({batch.meta.shape[0]} graphs, "
             f"{batch.node_of.shape[0]} nodes, {n_edges} edges, up to "
-            f"{levels} levels, the longest chain of dependent steps): kernel "
-            f"== plain {same}, max |diff| {err} (tolerance 0); kernel "
-            f"{ms:.4f} ms ({1e3 * ms / levels:.3f} us a level), plain "
-            f"{plain_ms:.1f} ms; bound {b:.5f} ms by {by}, "
+            f"{levels} levels and {batch.max_nodes} nodes a graph, the "
+            f"longest chain of dependent steps; route {route}): kernel == "
+            f"plain {same}, max |diff| {err} (tolerance 0), == the global "
+            f"route {same_g}; kernel {ms:.4f} ms ({1e3 * ms / levels:.3f} "
+            f"us a level), the global route (a warp a graph, level by "
+            f"level) {global_ms:.4f} ms ({1e3 * global_ms / levels:.3f} us "
+            f"a level), plain {plain_ms:.1f} ms; bound {b:.5f} ms by {by}, "
             f"{100 * b / ms:.4f}% of it; library call: none")
         if out is None:
             out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

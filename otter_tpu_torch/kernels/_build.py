@@ -151,9 +151,17 @@ def load() -> ctypes.CDLL:
             lib.otter_kmer_counts.argtypes = [_P, _P, _I, _I, _P, _P]
             lib.otter_linkage.restype = _I
             lib.otter_linkage.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+            lib.otter_linkage_plan.restype = _I
+            lib.otter_linkage_plan.argtypes = [_I, _P, _P, _P]
+            lib.otter_linkage_route.restype = _I
+            lib.otter_linkage_route.argtypes = [_P, _I, _I, _P, _P, _P, _I,
+                                                _I, _P]
             lib.otter_poa_heaviest.restype = _I
-            lib.otter_poa_heaviest.argtypes = [_P, _P, _P, _P, _P, _P, _P,
-                                               _I, _I, _P, _P, _P]
+            lib.otter_poa_heaviest.argtypes = [_P, _P, _P, _P, _P, _I, _I,
+                                               _P, _P, _P, _P]
+            lib.otter_poa_heaviest_stream.restype = _I
+            lib.otter_poa_heaviest_stream.argtypes = [_P, _P, _P, _P] + [
+                _I] * 7 + [_P, _P, _P]
             lib.otter_cuda_error_string.restype = ctypes.c_char_p
             lib.otter_cuda_error_string.argtypes = [_I]
             _lib = lib

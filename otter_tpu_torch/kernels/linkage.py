@@ -10,14 +10,19 @@ i: D[i][c] = D[c][i] = fl(fma(si, D[i][c], fl(sj D[j][c])) / max(si + sj,
 1)), the fused multiply-add that XLA on the CPU compiles the JAX
 function's ``si * D[i, :] + sj * D[j, :]`` into.
 
-``linkage_cuda`` launches the hand-written kernel (``csrc/linkage.cu``),
+``linkage_cuda`` launches the hand-written kernel (``csrc/linkage.cu``) on
+one of three routes chosen by n and the card (``linkage_plan``): one
+block with D in shared memory, a thread block cluster with D's upper
+triangle in its distributed shared memory where the card can place it, or
+one block with D in device memory;
 ``linkage_torch`` is the plain PyTorch version (the JAX function's full
 scan a step), and ``linkage`` picks one by device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,6 +32,8 @@ from .myers_pallas import data_ptr
 _INF = 3.0e38
 # matrices larger than this do not fit the kernel's per-row state
 N_MAX = 12288
+# the kernel's routes, by the numbers csrc/linkage.cu gives them
+ROUTES = ("shared", "cluster", "l2")
 
 
 def _check(D) -> None:
@@ -94,10 +101,32 @@ def linkage_torch(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return recs, hs
 
 
-def linkage_cuda(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def linkage_plan(n: int, lib=None) -> Tuple[str, int, int]:
+    """(route, cluster size, shared memory bytes a block) of K11's launch
+    for n x n matrices on the current card: the kernel library's own rule
+    (``lib``: the built library by default); the L2 route where the card
+    cannot place the cluster the triangle needs."""
+    if lib is None:
+        from . import _build
+
+        lib = _build.load()
+    out = [ctypes.c_int() for _ in range(3)]
+    err = lib.otter_linkage_plan(n, *(ctypes.byref(x) for x in out))
+    if err:
+        raise ValueError(f"no K11 route for n = {n}")
+    return ROUTES[out[0].value], out[1].value, out[2].value
+
+
+def linkage_cuda(D: torch.Tensor, route: Optional[str] = None,
+                 cluster: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11 on the card (``csrc/linkage.cu``): one launch on the current
-    stream, a block per matrix, no synchronisation. Raises on bad inputs
-    or a refused launch."""
+    stream on ``linkage_plan``'s route (``route`` forces one: "cluster"
+    with ``cluster`` blocks, "l2", or "shared" where D fits), counted in
+    ``linkage_cuda.routes``. The cluster route holds D's upper triangle
+    only, so there D must be symmetric: the check waits for D, and a D
+    that is not raises (the other routes read D whole, as the plain
+    version does, and need no check). Raises on bad inputs or a refused
+    launch, a forced cluster the card cannot place included."""
     from . import _build
 
     _check(D)
@@ -110,19 +139,29 @@ def linkage_cuda(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                      device=D.device)
     if B == 0 or n < 2:
         return recs, hs
-    # the working copy of matrices too large for shared memory
-    scratch = torch.empty_like(D)
     lib = _build.load()
     stream = torch.cuda.current_stream(D.device).cuda_stream
     with torch.cuda.device(D.device):
-        err = lib.otter_linkage(data_ptr(D), n, B, data_ptr(scratch),
-                                data_ptr(recs), data_ptr(hs), stream)
-    _build.check(lib, err, "linkage_cuda")
+        name = route or linkage_plan(n, lib)[0]
+        if name == "cluster" and not torch.equal(D, D.transpose(1, 2)):
+            raise ValueError("D must be symmetric on K11's cluster route")
+        # the working copy of matrices on the L2 route
+        scratch = torch.empty_like(D) if name == "l2" else D
+        if route is None:
+            err = lib.otter_linkage(data_ptr(D), n, B, data_ptr(scratch),
+                                    data_ptr(recs), data_ptr(hs), stream)
+        else:
+            err = lib.otter_linkage_route(
+                data_ptr(D), n, B, data_ptr(scratch), data_ptr(recs),
+                data_ptr(hs), ROUTES.index(route), cluster, stream)
+    _build.check(lib, err, f"linkage_cuda ({name} route)")
     linkage_cuda.launches += 1
+    linkage_cuda.routes[name] += 1
     return recs, hs
 
 
 linkage_cuda.launches = 0
+linkage_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
 def linkage(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

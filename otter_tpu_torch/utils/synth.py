@@ -13,7 +13,8 @@ reads carry N bases in the allele. With neither option the data equal
 ``cohort_fixture`` writes ``bench_e2e.build_cohort_fixture``'s merged
 cohort BAM, BED and reference FASTA, byte for byte, and ``region_fixture``
 ``bench_e2e.build_fixture``'s short tandem-repeat regions (the JAX
-package's regions bench leg and multichip dry run).
+package's regions bench leg and multichip dry run). ``poa_shaped_graph``
+gives the edges of a seeded graph shaped like a POA graph.
 """
 
 from __future__ import annotations
@@ -174,8 +175,19 @@ def tandem_repeat_loci(tmp: str, n_regions: int, cov: int, err: float,
     return bam, bed
 
 
+def _primes(lo: int, hi: int) -> List[int]:
+    """The primes in [lo, hi)."""
+    sieve = np.ones(hi, dtype=bool)
+    sieve[:2] = False
+    for p in range(2, int(hi ** 0.5) + 1):
+        if sieve[p]:
+            sieve[p * p :: p] = False
+    return [int(p) for p in np.flatnonzero(sieve) if p >= lo]
+
+
 def cohort_fixture(tmp: str, n_samples: int = 64, n_regions: int = 32,
-                   seed: int = 5, vntr: bool = False) -> Tuple[str, str, str]:
+                   seed: int = 5, vntr: bool = False,
+                   prime_lengths: bool = False) -> Tuple[str, str, str]:
     """A merged otter cohort BAM (one allele record per sample haplotype,
     with its ta/RG/tc/ac/sc/se/ic tags and one @RG line per sample), its BED
     and the reference FASTA under ``tmp``: the joint-genotyping input of
@@ -183,8 +195,13 @@ def cohort_fixture(tmp: str, n_samples: int = 64, n_regions: int = 32,
     units of a 120 bp region, even ones hom-ref; each allele carries 0-2
     substitutions. ``vntr``: instead, every haplotype carries its own
     random insert of 1-2,999 bp (a locus with as many allele lengths as
-    haplotypes, so its length distances are nearly all distinct). Returns
-    (bam, bed, fasta)."""
+    haplotypes, so its length distances are nearly all distinct).
+    ``prime_lengths`` (with ``vntr``): the haplotypes of a region take
+    distinct prime lengths below 3,120, so its length distances |x - y| /
+    max(x, y) are all distinct, in float32 too (two distinct fractions with
+    denominators below 3,120 differ by more than 1 / 3120^2, over a
+    float32 ulp below 1); at most 207 samples. Returns (bam, bed,
+    fasta)."""
     rng = random.Random(seed)
     span = 2500
     ref_len = 1000 + n_regions * span + 2000
@@ -199,8 +216,15 @@ def cohort_fixture(tmp: str, n_samples: int = 64, n_regions: int = 32,
             region = f"chr1:{start}-{end}"
             base = ref[start:end]
             exp = base + "CAG" * rng.randrange(10, 30)
+            if prime_lengths:
+                lengths = rng.sample(_primes(len(base) + 2, 3120),
+                                     2 * n_samples)
             for s in range(n_samples):
-                if vntr:
+                if prime_lengths:
+                    haps = tuple(base + "".join(
+                        rng.choice("ACGT") for _ in range(L - len(base)))
+                        for L in lengths[2 * s : 2 * s + 2])
+                elif vntr:
                     haps = tuple(base + "".join(rng.choice("ACGT") for _ in
                                                 range(rng.randrange(1, 3000)))
                                  for _ in range(2))
@@ -351,3 +375,34 @@ def region_fixture(tmp: str, n_regions: int = 100, cov: int = 12,
         for i in range(0, len(ref), 60):
             fh.write(ref[i : i + 60] + "\n")
     return bam, bed, fa
+
+
+def poa_shaped_graph(rs, backbone: int, snps: int, insertions: int,
+                     deletions: int):
+    """(src, sink, w, depth) of a seeded graph shaped like a POA graph: a
+    backbone chain, SNP nodes beside it, inserted nodes on it (the backbone
+    edge kept), deletions (an edge over a backbone node); node ids in a
+    topological order, edges by source, weights counts x 0.37 in float32,
+    depth each node's Kahn level."""
+    at = np.arange(1, backbone - 1)
+    snp = np.zeros(backbone, dtype=np.int64)
+    ins = np.zeros(backbone, dtype=np.int64)
+    snp[rs.choice(at, snps, replace=False)] = 1
+    ins[rs.choice(at, insertions, replace=False)] = 1
+    dels = np.sort(rs.choice(at, deletions, replace=False))
+    extra = snp + ins
+    bid = np.arange(backbone) + np.concatenate([[0], np.cumsum(extra)[:-1]])
+    b = np.nonzero(snp)[0]
+    c = np.nonzero(ins)[0]
+    src = np.concatenate([bid[:-1], bid[b - 1], bid[b] + 1, bid[c],
+                          bid[c] + 1 + snp[c], bid[dels - 1]])
+    sink = np.concatenate([bid[1:], bid[b] + 1, bid[b + 1], bid[c] + 1 +
+                           snp[c], bid[c + 1], bid[dels + 1]])
+    order = np.argsort(src, kind="stable")
+    src, sink = src[order], sink[order]
+    n = int(bid[-1]) + 1
+    depth = np.zeros(n, dtype=np.int64)
+    for u, v in zip(src.tolist(), sink.tolist()):  # sources ascend
+        depth[v] = max(depth[v], depth[u] + 1)
+    w = (rs.integers(1, 100, len(src)) * np.float32(0.37)).astype(np.float32)
+    return src, sink, w, depth

@@ -48,8 +48,15 @@ CUDA_RUNTIME_H = r"""
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9
+};
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 12
+};
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return 0;
@@ -94,32 +101,80 @@ struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local Dim3 threadIdx, blockIdx, blockDim;
 
 namespace emu {
+struct Warp;
+// a block's or a cluster's barrier; with the warps it releases, for the
+// turn that was parked on it (see stagger below)
+struct Group;
+struct OnPhase {
+  Group* g;
+  void operator()() noexcept;
+};
+struct Group {
+  std::barrier<OnPhase> bar;
+  std::vector<Warp*> warps;
+  std::atomic<bool> stash{false};
+  explicit Group(int n) : bar(n, OnPhase{this}) {}
+};
 struct Warp {
   std::barrier<> bar{32};
   uint64_t slot[2][32];
   std::counting_semaphore<32> go{0};  // the warp's turn, when staggered
   Warp* next = nullptr;               // the warp whose turn comes next
+  std::atomic<bool> parked{false};    // waiting at a block or cluster barrier
+  std::atomic<bool> done{false};      // returned from the kernel
 };
+struct Cluster;
 struct Block {
-  std::barrier<> bar;
-  explicit Block(int n) : bar(n) {}
+  Group group;
+  uint8_t* smem;
+  Cluster* cluster = nullptr;
+  int rank = 0;
+  explicit Block(int n) : group(n) {}
+};
+struct Cluster {
+  Group group;
+  std::vector<Block*> blocks;
+  explicit Cluster(int n) : group(n) {}
 };
 inline thread_local Warp* warp;
 inline thread_local Block* block;
 inline thread_local int lane;
 inline thread_local int parity;
-// stagger: 0, a block's warps run together; 1 (-1), between two
-// __syncthreads they run one at a time, from the first warp (the last), so
-// a warp runs on to its next barrier, writing the shared memory it writes
-// there, before the warps after it read what they read after the last one
+// the shared memory of blocks that run one after another
+alignas(64) inline uint8_t smem_serial[1 << 18];
+// stagger: 0, the warps of a block (of a cluster) run together; 1 (-1),
+// they run one at a time, from the first warp (the last), so a warp runs on
+// to its next barrier, writing the shared memory it writes there, before
+// the warps after it read what they read after the last one. A warp hands
+// its turn on at every block or cluster barrier (and parks there), where it
+// waits on an mbarrier (and takes a turn again later), and when it returns;
+// the turn skips parked and returned warps, and when none is left it waits
+// with the barrier, which gives it to the first (last) warp it releases.
 inline int stagger = 0;
+inline void OnPhase::operator()() noexcept {
+  for (Warp* w : g->warps) w->parked = false;
+  if (g->stash.exchange(false)) {
+    (stagger > 0 ? g->warps.front() : g->warps.back())->go.release(32);
+  }
+}
 inline void wait_turn() {
   if (stagger) warp->go.acquire();
 }
-inline void end_turn() {
+// hand the turn on: parking at barrier g, returning (g null, done), or
+// yielding while an mbarrier is pending (g null)
+inline void end_turn(Group* g, bool done = false) {
   if (!stagger) return;
   warp->bar.arrive_and_wait();  // the warp's 32 lanes are done
-  if (lane == 0) warp->next->go.release(32);
+  if (lane != 0) return;
+  if (done) warp->done = true;
+  if (g) warp->parked = true;
+  Warp* w = warp->next;
+  while (w != warp && (w->parked || w->done)) w = w->next;
+  if (w == warp && (warp->parked || warp->done)) {
+    if (g) g->stash = true;
+    return;
+  }
+  w->go.release(32);
 }
 // every lane posts its value, then reads the source lane's (or its own);
 // posts alternate between two slot sets, so one barrier a call suffices (a
@@ -138,49 +193,142 @@ T exchange(T v, int src, bool keep) {
   std::memcpy(&r, &y, sizeof(T));
   return r;
 }
-// kernel<<<grid, block, smem, stream>>>(args): blocks one after another;
-// a block's warps together, or one after another with EMU_WARPS_IN_TURN
-// (fewer threads contend at each barrier; only for a source whose warps
-// share nothing)
-template <class F>
-auto launch(F f, int grid, int block, int, void*) {
-  return [=](auto... args) {
-    for (int g = 0; g < grid; ++g) {
-      std::vector<std::unique_ptr<Warp>> warps;
-      const int nw = (block + 31) / 32;
-      for (int q = 0; q < nw; ++q) warps.emplace_back(new Warp);
-      for (int q = 0; q < nw && stagger; ++q) {
-        warps[q]->next = warps[(q + nw + stagger) % nw].get();
+// grid blocks of `block` threads, `cluster` blocks at a time: a cluster's
+// blocks run together, each with its own shared memory; clusters (and
+// blocks without one) one after another, sharing smem_serial. A block's
+// warps run together, or one after another with EMU_WARPS_IN_TURN (fewer
+// threads contend at each barrier; only for a source whose warps share
+// nothing)
+template <class F, class... A>
+void run(F f, int grid, int block, int cluster, A... args) {
+  for (int g0 = 0; g0 < grid; g0 += cluster) {
+    const int nb = cluster;
+    const int nw = (block + 31) / 32;
+    std::vector<std::unique_ptr<Warp>> warps;
+    for (int q = 0; q < nb * nw; ++q) warps.emplace_back(new Warp);
+    std::vector<std::unique_ptr<Block>> blocks;
+    std::vector<std::unique_ptr<uint8_t[]>> smem;
+    Cluster cl(nb * block);
+    for (int b = 0; b < nb; ++b) {
+      blocks.emplace_back(new Block(block));
+      if (nb > 1) smem.emplace_back(new uint8_t[1 << 18]);
+      blocks[b]->smem = nb > 1 ? smem[b].get() : smem_serial;
+      blocks[b]->cluster = &cl;
+      blocks[b]->rank = b;
+      cl.blocks.push_back(blocks[b].get());
+      for (int q = 0; q < nw; ++q) {
+        blocks[b]->group.warps.push_back(warps[b * nw + q].get());
       }
-      if (stagger) warps[stagger > 0 ? 0 : nw - 1]->go.release(32);
-      Block blk(block);
+    }
+    for (auto& w : warps) cl.group.warps.push_back(w.get());
+    const int total = nb * nw;
+    for (int q = 0; q < total && stagger; ++q) {
+      warps[q]->next = warps[(q + total + stagger) % total].get();
+    }
+    if (stagger) warps[stagger > 0 ? 0 : total - 1]->go.release(32);
 #ifdef EMU_WARPS_IN_TURN
-      const int turn = 32;
+    const int turn = 32;
 #else
-      const int turn = block;
+    const int turn = block;
 #endif
-      for (int t0 = 0; t0 < block; t0 += turn) {
-        std::vector<std::thread> threads;
+    for (int t0 = 0; t0 < block; t0 += turn) {
+      std::vector<std::thread> threads;
+      for (int b = 0; b < nb; ++b) {
         for (int t = t0; t < t0 + turn && t < block; ++t) {
-          threads.emplace_back([&, t, g]() {
+          threads.emplace_back([&, t, b]() {
             threadIdx.x = t;
-            blockIdx.x = g;
+            blockIdx.x = g0 + b;
             blockDim.x = block;
-            warp = warps[t / 32].get();
-            emu::block = &blk;
+            warp = warps[b * nw + t / 32].get();
+            emu::block = blocks[b].get();
             lane = t % 32;
             parity = 0;
             wait_turn();
             f(args...);
-            end_turn();
+            end_turn(nullptr, true);
           });
         }
-        for (auto& th : threads) th.join();
       }
+      for (auto& th : threads) th.join();
     }
-  };
+  }
+}
+// kernel<<<grid, block, smem, stream>>>(args)
+template <class F>
+auto launch(F f, int grid, int block, int, void*) {
+  return [=](auto... args) { run(f, grid, block, 1, args...); };
 }
 }  // namespace emu
+
+// cudaLaunchKernelEx with a cluster dimension: the cluster's blocks together
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct {
+    struct { unsigned x, y, z; } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*f)(E...), A&&... args) {
+  int cluster = 1;
+  for (unsigned q = 0; q < cfg->numAttrs; ++q) {
+    if (cfg->attrs[q].id == cudaLaunchAttributeClusterDimension) {
+      cluster = cfg->attrs[q].val.clusterDim.x;
+    }
+  }
+  if (cluster < 1 || cfg->gridDim.x % cluster) return cudaErrorInvalidValue;
+  emu::run(f, cfg->gridDim.x, cfg->blockDim.x, cluster, E(args)...);
+  return 0;
+}
+namespace emu {
+// the most blocks a cluster the emulated card places (a card, or a slice
+// of one, with fewer SMs a GPC places smaller clusters)
+inline int max_cluster = 16;
+}  // namespace emu
+extern "C" void emu_set_max_cluster(int c) { emu::max_cluster = c; }
+// as many clusters as the card's 132 SMs hold, or 0 past max_cluster
+template <class F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, F,
+                                           const cudaLaunchConfig_t* cfg) {
+  int cluster = 1;
+  for (unsigned q = 0; q < cfg->numAttrs; ++q) {
+    if (cfg->attrs[q].id == cudaLaunchAttributeClusterDimension) {
+      cluster = cfg->attrs[q].val.clusterDim.x;
+    }
+  }
+  *n = cluster <= emu::max_cluster ? 132 / cluster : 0;
+  return 0;
+}
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return emu::block->rank; }
+  unsigned num_blocks() const { return emu::block->cluster->blocks.size(); }
+  void sync() const {
+    emu::Group* g = &emu::block->cluster->group;
+    emu::end_turn(g);
+    g->bar.arrive_and_wait();
+    emu::wait_turn();
+  }
+  // the same offset in block r's shared memory
+  template <class T> T* map_shared_rank(T* p, unsigned r) const {
+    const auto off = reinterpret_cast<uint8_t*>(p) - emu::block->smem;
+    return reinterpret_cast<T*>(emu::block->cluster->blocks[r]->smem + off);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 
 // width: the warp splits into groups of that many lanes (a power of two)
 template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
@@ -209,11 +357,59 @@ inline int __any_sync(unsigned, int p) {
 }
 inline void __syncwarp() { emu::warp->bar.arrive_and_wait(); }
 inline void __syncthreads() {
-  emu::end_turn();
-  emu::block->bar.arrive_and_wait();
+  emu::end_turn(&emu::block->group);
+  emu::block->group.bar.arrive_and_wait();
   emu::wait_turn();
 }
 extern "C" void emu_set_stagger(int s) { emu::stagger = s; }
+// an mbarrier in its 8 bytes: the pending transaction bytes (bits 0-31),
+// pending arrivals (32-47), the arrival count (48-62) and the parity of the
+// current phase (63); a phase completes when both pendings reach 0
+namespace emu {
+inline void mbar_update(uint64_t* bar, int arrivals, int64_t tx) {
+  std::atomic_ref<uint64_t> a(*bar);
+  uint64_t old = a.load();
+  for (;;) {
+    const int32_t t = static_cast<int32_t>(old & 0xffffffffu) +
+                      static_cast<int32_t>(tx);
+    int pend = static_cast<int>((old >> 32) & 0xffff) - arrivals;
+    const uint64_t count = (old >> 48) & 0x7fff;
+    uint64_t phase = old >> 63;
+    if (pend == 0 && t == 0) pend = static_cast<int>(count), phase ^= 1;
+    const uint64_t nw = (phase << 63) | (count << 48) |
+                        (static_cast<uint64_t>(pend) << 32) |
+                        static_cast<uint32_t>(t);
+    if (a.compare_exchange_weak(old, nw)) return;
+  }
+}
+}  // namespace emu
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  *bar = (uint64_t(count) << 48) | (uint64_t(count) << 32);
+}
+inline void mbar_arrive(uint64_t* bar) { emu::mbar_update(bar, 1, 0); }
+inline void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  emu::mbar_update(bar, 1, bytes);
+}
+// every lane of the warp waits (the warp decides together, so it can hand
+// its turn on while the phase is pending)
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (;;) {
+    const uint64_t st = std::atomic_ref<uint64_t>(*bar).load();
+    if (!__any_sync(~0u, (st >> 63) == parity)) return;
+    if (emu::stagger) {
+      emu::end_turn(nullptr);
+      emu::wait_turn();
+    } else {
+      std::this_thread::yield();
+    }
+  }
+}
+// a bulk copy: the copy, then its bytes' completion on the mbarrier
+inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
+                          uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  emu::mbar_update(bar, 0, -static_cast<int64_t>(bytes));
+}
 // atomicAdd on a shared or device-memory int or float: the block's threads
 // are host threads, so a std::atomic_ref add
 template <class T> T atomicAdd(T* p, T v) {
@@ -245,6 +441,7 @@ def build_emulated(tmp_path_factory, source: str,
     name = source.rsplit("/", 1)[1][:-3]
     d = tmp_path_factory.mktemp(f"{name}_emu")
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (d / "cooperative_groups.h").write_text("#include <cuda_runtime.h>\n")
     with open(source) as fh:
         src = fh.read()
     # the package's headers inline, so their launches are rewritten too
@@ -255,12 +452,14 @@ def build_emulated(tmp_path_factory, source: str,
             return fh.read()
 
     src = re.sub(r'#include "(\w+\.cuh)"', header, src)
+    # a block's dynamic shared memory is its own (a cluster's blocks run
+    # together)
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu::block->smem);", src)
     # kernel<L, E><<<grid, block, smem, stream>>>(args) -> emu::launch(...)(args)
     src = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(",
                  r"emu::launch(\1, \2)(", src, flags=re.S)
-    (d / f"{name}.cpp").write_text(
-        "#include <cuda_runtime.h>\n"
-        "namespace { alignas(16) uint8_t smem_raw[1 << 18]; }\n" + src)
+    (d / f"{name}.cpp").write_text("#include <cuda_runtime.h>\n" + src)
     lib = d / f"lib{name}_emu.so"
     turns = ["-DEMU_WARPS_IN_TURN"] if warps_in_turn else []
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",

@@ -29,6 +29,7 @@ from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
 from otter_tpu_torch.kernels.edit_engine import EditDistanceEngine, MeshEngine
 from otter_tpu_torch.models.assemble import assemble
 from otter_tpu_torch.ops.align_batch import _ends_free_banded_numpy
+from otter_tpu_torch.utils.synth import poa_shaped_graph
 
 from fixtures import make_reference, simulate_region_bam
 
@@ -686,7 +687,8 @@ def test_kmer_counts_cuda_matches_plain(cuda_device, k):
 @pytest.mark.parametrize("n", [2, 129, 300])
 def test_linkage_cuda_matches_plain(cuda_device, n):
     """K11 on the card equals its plain version bit for bit: D in shared
-    memory (n = 2, 129; two matrices) and in device memory (n = 300)."""
+    memory (n = 2, 129; two matrices) and, at n = 300, the upper triangle
+    in a cluster of two blocks (two matrices, a cluster each)."""
     from otter_tpu_torch.kernels import linkage as K11
 
     rng = np.random.default_rng(n)
@@ -701,6 +703,140 @@ def test_linkage_cuda_matches_plain(cuda_device, n):
     assert torch.equal(got_r.cpu(), want_r)
     assert torch.equal(got_h.cpu().view(torch.int32),
                        want_h.view(torch.int32))
+
+
+def _tie_free(n, seed):
+    """(1, n, n) float32 symmetric distances, all distinct."""
+    rs = np.random.default_rng(seed)
+    m = n * (n - 1) // 2
+    sq = np.zeros((n, n), dtype=np.float32)
+    sq[np.triu_indices(n, 1)] = (rs.permutation(m) + 1.0) / (m + 1.0)
+    return torch.from_numpy(sq + sq.T)[None]
+
+
+def _route_bounds():
+    """K11's last n on the shared-memory route and last on the cluster
+    route, by the library's plan."""
+    from otter_tpu_torch.kernels import linkage as K11
+
+    last = {}
+    for n in range(100, 2000):
+        last[K11.linkage_plan(n)[0]] = n
+    return last["shared"], last["cluster"]
+
+
+@pytest.mark.parametrize("side", ["shared", "cluster_low", "cluster_high",
+                                  "l2"])
+def test_linkage_cuda_route_boundaries(cuda_device, side):
+    """K11 on each side of each route boundary (the last n of D in shared
+    memory, the first and last n of the cluster route, the first n of the
+    L2 route): the plan's route is taken and counted, and records and
+    heights equal the plain version's and the L2 route's bit for bit."""
+    from otter_tpu_torch.kernels import linkage as K11
+
+    last_shared, last_cluster = _route_bounds()
+    n = {"shared": last_shared, "cluster_low": last_shared + 1,
+         "cluster_high": last_cluster, "l2": last_cluster + 1}[side]
+    route = "shared" if side == "shared" else side.split("_")[0]
+    assert K11.linkage_plan(n)[0] == route
+    D = _tie_free(n, n).to(cuda_device)
+    before = dict(K11.linkage_cuda.routes)
+    got_r, got_h = K11.linkage_cuda(D)
+    assert K11.linkage_cuda.routes[route] == before[route] + 1
+    want_r, want_h = K11.linkage_torch(D)
+    assert torch.equal(got_r, want_r)
+    assert torch.equal(got_h.view(torch.int32), want_h.view(torch.int32))
+    l2_r, l2_h = K11.linkage_cuda(D, route="l2")
+    assert torch.equal(l2_r, got_r)
+    assert torch.equal(l2_h.view(torch.int32), got_h.view(torch.int32))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 5, 16])
+def test_linkage_cuda_cluster_sizes(cuda_device, cluster):
+    """The cluster kernel with 1, 2, 5 and 16 blocks on two matrices (n =
+    300, a cluster each): bit for bit the plain version's."""
+    from otter_tpu_torch.kernels import linkage as K11
+
+    D = torch.cat([_tie_free(300, 3), _tie_free(300, 4)]).to(cuda_device)
+    want_r, want_h = K11.linkage_torch(D)
+    got_r, got_h = K11.linkage_cuda(D, route="cluster", cluster=cluster)
+    assert torch.equal(got_r, want_r)
+    assert torch.equal(got_h.view(torch.int32), want_h.view(torch.int32))
+
+
+def test_linkage_cuda_non_symmetric_raises(cuda_device):
+    """A D that is not symmetric raises on the cluster route (it holds the
+    upper triangle), before any launch."""
+    from otter_tpu_torch.kernels import linkage as K11
+
+    D = _tie_free(400, 9).to(cuda_device)
+    assert K11.linkage_plan(400)[0] == "cluster"
+    D[0, 3, 7] += 0.25
+    launches = K11.linkage_cuda.launches
+    with pytest.raises(ValueError, match="symmetric"):
+        K11.linkage_cuda(D)
+    assert K11.linkage_cuda.launches == launches
+
+
+def test_poa_heaviest_stream_longer_than_ring(cuda_device):
+    """K12's streamed kernel on graphs far longer than its rings (3,140
+    nodes against rings of 4 x 256 elements): h bit for bit and min_eid
+    equal to the plain version's and to the device-memory kernel's."""
+    from otter_tpu_torch.kernels import poa_heaviest as K12
+
+    rs = np.random.default_rng(23)
+    batch = K12.pack_graphs([poa_shaped_graph(rs, 3000, 100, 40, 60),
+                             poa_shaped_graph(rs, 700, 20, 10, 10)])
+    lg_slots, lg_pos, lg_edge = K12.RING
+    assert batch.max_nodes > 2 << lg_slots + max(lg_pos, lg_edge)
+    assert K12.stream_fits(batch)
+    want_h, want_m = K12.poa_heaviest_torch(batch)
+    on_card = batch.to(cuda_device)
+    before = K12.poa_heaviest_cuda.routes["stream"]
+    got_h, got_m = K12.poa_heaviest_cuda(on_card)
+    assert K12.poa_heaviest_cuda.routes["stream"] == before + 1
+    assert torch.equal(got_h.cpu().view(torch.int32),
+                       want_h.view(torch.int32))
+    assert torch.equal(got_m.cpu(), want_m)
+    g_h, g_m = K12.poa_heaviest_cuda(on_card, route="global")
+    assert torch.equal(g_h.view(torch.int32), got_h.view(torch.int32))
+    assert torch.equal(g_m, got_m)
+
+
+def test_poa_heaviest_past_stream_nodes(cuda_device):
+    """A graph past STREAM_NODES takes the device-memory kernel, counted,
+    bit for bit the plain version's."""
+    from otter_tpu_torch.kernels import poa_heaviest as K12
+
+    rs = np.random.default_rng(29)
+    batch = K12.pack_graphs([poa_shaped_graph(rs, 24000, 800, 100, 300),
+                             poa_shaped_graph(rs, 500, 10, 5, 5)])
+    assert batch.max_nodes > K12.STREAM_NODES
+    assert not K12.stream_fits(batch)
+    want_h, want_m = K12.poa_heaviest_torch(batch)
+    before = K12.poa_heaviest_cuda.routes["global"]
+    got_h, got_m = K12.poa_heaviest_cuda(batch.to(cuda_device))
+    assert K12.poa_heaviest_cuda.routes["global"] == before + 1
+    assert torch.equal(got_h.cpu().view(torch.int32),
+                       want_h.view(torch.int32))
+    assert torch.equal(got_m.cpu(), want_m)
+
+
+def test_poa_heaviest_past_smem_nodes(cuda_device):
+    """A graph past the device-memory kernel's shared memory (SMEM_NODES)
+    keeps h in device-memory scratch, by position: bit for bit the plain
+    version's."""
+    from otter_tpu_torch.kernels import poa_heaviest as K12
+
+    rs = np.random.default_rng(31)
+    batch = K12.pack_graphs([poa_shaped_graph(rs, 50000, 900, 100, 300),
+                             poa_shaped_graph(rs, 500, 10, 5, 5)])
+    assert batch.max_nodes > K12.SMEM_NODES
+    on_card = batch.to(cuda_device)
+    want_h, want_m = K12.poa_heaviest_torch(on_card)
+    got_h, got_m = K12.poa_heaviest_cuda(on_card)
+    assert torch.equal(got_h.view(torch.int32), want_h.view(torch.int32))
+    assert torch.equal(got_m, want_m)
 
 
 def test_poa_heaviest_cuda_matches_plain(cuda_device):

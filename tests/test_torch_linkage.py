@@ -211,21 +211,32 @@ def emulated(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     so.otter_linkage.restype = I
     so.otter_linkage.argtypes = [P, I, I, P, P, P, P]
+    so.otter_linkage_route.restype = I
+    so.otter_linkage_route.argtypes = [P, I, I, P, P, P, I, I, P]
+    so.otter_linkage_plan.restype = I
+    so.otter_linkage_plan.argtypes = [I, P, P, P]
     so.emu_set_stagger.argtypes = [I]
+    so.emu_set_max_cluster.argtypes = [I]
     return so
 
 
-@pytest.mark.parametrize("n,mats,stagger", [(2, 1, 0), (40, 2, 0),
-                                             (129, 1, 0), (240, 1, 0),
-                                             (96, 1, 1), (96, 1, -1)])
-def test_cuda_source_emulated_matches_plain(emulated, n, mats, stagger):
-    """The CUDA source equals the plain version bit for bit: D in shared
-    memory (n <= 220; two matrices, a block each) and in device-memory
-    scratch (n = 240); also (n = 96) with a block's warps run one at a
-    time between barriers, from the first and from the last
-    (``emu_set_stagger``), so
-    a warp's writes before a barrier land ahead of the other warps'
-    reads after it."""
+@pytest.mark.parametrize("n,mats,route,cluster,stagger", [
+    (2, 1, None, 0, 0), (40, 2, None, 0, 0), (129, 1, None, 0, 0),
+    (240, 1, "l2", 0, 0), (96, 1, None, 0, 1), (96, 1, None, 0, -1),
+    (300, 1, None, 0, 0), (40, 2, "cluster", 3, 0),
+    (40, 1, "cluster", 4, 1), (40, 1, "cluster", 4, -1),
+    (60, 1, "cluster", 16, 0), (60, 1, "cluster", 1, 1)])
+def test_cuda_source_emulated_matches_plain(emulated, n, mats, route,
+                                            cluster, stagger):
+    """The CUDA source equals the plain version bit for bit on each route:
+    D in shared memory (n <= 224; two matrices, a block each), in
+    device-memory scratch (n = 240, the L2 route forced), and its upper
+    triangle in a cluster's shared memory (n = 300 by the plan: two
+    blocks; n = 40 and 60 with 1, 3, 4 and 16 blocks forced, the blocks of
+    a cluster run together); also with the warps run one at a time between barriers,
+    from the first and from the last (``emu_set_stagger``; over all the
+    cluster's warps at a cluster barrier), so a warp's writes before a
+    barrier land ahead of the other warps' reads after it."""
     emulated.emu_set_stagger(stagger)
     D = torch.from_numpy(np.stack([_square(n, 7 * n + m)[0]
                                    for m in range(mats)]))
@@ -233,12 +244,77 @@ def test_cuda_source_emulated_matches_plain(emulated, n, mats, stagger):
     recs = torch.empty_like(want_r)
     hs = torch.empty_like(want_h)
     scratch = torch.empty_like(D)
+    args = (D.data_ptr(), n, mats, scratch.data_ptr(), recs.data_ptr(),
+            hs.data_ptr())
     try:
-        assert emulated.otter_linkage(D.data_ptr(), n, mats,
-                                      scratch.data_ptr(), recs.data_ptr(),
-                                      hs.data_ptr(), None) == 0
+        if route is None:
+            assert emulated.otter_linkage(*args, None) == 0
+        else:
+            assert emulated.otter_linkage_route(
+                *args, K11.ROUTES.index(route), cluster, None) == 0
     finally:
         emulated.emu_set_stagger(0)
+    assert torch.equal(recs, want_r)
+    assert np.array_equal(_bits(hs.numpy()), _bits(want_h.numpy()))
+
+
+def test_linkage_plan_routes_by_n(emulated):
+    """K11's route by n alone: one block while D and the block's state fit
+    200 KB (n <= 224), then the smallest cluster of two or more blocks
+    that each hold their share of the upper triangle in 227 KB (two to n =
+    473, ten at genotype500's n = 1,001, sixteen at the last, n = 1,312),
+    then the L2 route up to N_MAX; a forced cluster too small for the
+    triangle is refused."""
+    plans = {n: K11.linkage_plan(n, emulated) for n in range(2, 1400)}
+    assert all(plans[n][0] == "shared" for n in range(2, 225))
+    assert plans[225] == ("cluster", 2, plans[225][2])
+    assert plans[473][:2] == ("cluster", 2)
+    assert plans[474][:2] == ("cluster", 3)
+    assert plans[1001][:2] == ("cluster", 10)
+    cluster = [n for n in plans if plans[n][0] == "cluster"]
+    assert cluster == list(range(225, 1313))
+    assert plans[1312][1] == 16
+    assert all(plans[n][0] == "l2" for n in range(1313, 1400))
+    assert all(plans[n][2] <= 227 * 1024 for n in cluster)
+    assert K11.linkage_plan(K11.N_MAX, emulated)[0] == "l2"
+    with pytest.raises(ValueError):
+        K11.linkage_plan(K11.N_MAX + 1, emulated)
+    D = torch.from_numpy(_square(400, 1)[0][None])
+    recs = torch.empty((1, 399, 2), dtype=torch.int32)
+    hs = torch.empty((1, 399))
+    assert emulated.otter_linkage_route(
+        D.data_ptr(), 400, 1, D.data_ptr(), recs.data_ptr(), hs.data_ptr(),
+        K11.ROUTES.index("cluster"), 1, None) != 0
+
+
+def test_linkage_plan_refused_cluster_takes_l2(emulated):
+    """On a card that cannot place the cluster the plan would pick (the
+    emulated card's clusters capped at 4 blocks, then at 1), the plan takes
+    the L2 route (n = 1,001 wants 10 blocks, n = 300 two), the default
+    launch there equals the plain version, and a forced launch of a
+    cluster the card cannot place returns an error (which ``linkage_cuda``
+    raises) and writes nothing."""
+    n = 300
+    D = torch.from_numpy(_square(n, 3)[0][None])
+    want_r, want_h = K11.linkage_torch(D)
+    recs = torch.zeros_like(want_r)
+    hs = torch.zeros_like(want_h)
+    scratch = torch.empty_like(D)
+    args = (D.data_ptr(), n, 1, scratch.data_ptr(), recs.data_ptr(),
+            hs.data_ptr())
+    try:
+        emulated.emu_set_max_cluster(4)
+        assert K11.linkage_plan(1001, emulated)[:2] == ("l2", 1)
+        assert K11.linkage_plan(474, emulated)[:2] == ("cluster", 3)
+        assert K11.linkage_plan(n, emulated)[:2] == ("cluster", 2)
+        emulated.emu_set_max_cluster(1)
+        assert K11.linkage_plan(n, emulated)[:2] == ("l2", 1)
+        assert emulated.otter_linkage_route(
+            *args, K11.ROUTES.index("cluster"), 2, None) != 0
+        assert not recs.any() and not hs.any()
+        assert emulated.otter_linkage(*args, None) == 0
+    finally:
+        emulated.emu_set_max_cluster(16)
     assert torch.equal(recs, want_r)
     assert np.array_equal(_bits(hs.numpy()), _bits(want_h.numpy()))
 
@@ -269,3 +345,36 @@ def test_genotype_vntr_k11_route_byte_identical(tmp_path, monkeypatch):
     assert got.getvalue() == want.getvalue()
     assert want.getvalue().count("\n") > 4
     assert metrics.snapshot().get("count.hclust_device", 0) > 0
+
+
+def test_genotype_vntr_prime_lengths_every_length_matrix(tmp_path,
+                                                         monkeypatch):
+    """A VNTR cohort whose haplotypes take distinct prime lengths
+    (``prime_lengths``, as ``chip_smoke.py``'s vntr128) at a length cut of
+    0.1 (genotype -e 0.1): every region's length matrix passes the
+    exactness guards and takes K11 (its plain version here), and the VCF is
+    otter_tpu --device host's, byte for byte."""
+    import io
+
+    from otter_tpu.config import OtterOpts
+    from otter_tpu.models.genotype import genotype as reference_genotype
+    from otter_tpu_torch.config import OtterOpts as PortOpts
+    from otter_tpu_torch.models.genotype import genotype
+    from otter_tpu_torch.utils.synth import cohort_fixture
+
+    bam, bed, fa = cohort_fixture(str(tmp_path), 24, 3, 41, vntr=True,
+                                  prime_lengths=True)
+    host = OtterOpts()
+    host.device = "host"
+    host.init_max_error(0.1)
+    want = io.StringIO()
+    reference_genotype(host, bam, bed, fa, out=want)
+    monkeypatch.setenv("OTTER_TPU_NATIVE_HCLUST", "0")
+    monkeypatch.setenv("OTTER_TPU_HCLUST_DEVICE", "1")
+    metrics.reset()
+    opts = PortOpts(device="cpu")
+    opts.init_max_error(0.1)
+    got = io.StringIO()
+    genotype(opts, bam, bed, fa, out=got)
+    assert got.getvalue() == want.getvalue()
+    assert metrics.snapshot().get("count.hclust_device", 0) == 3

@@ -125,7 +125,10 @@ def emulated(tmp_path_factory):
     so = build_emulated(tmp_path_factory, SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
     so.otter_poa_heaviest.restype = I
-    so.otter_poa_heaviest.argtypes = [P] * 7 + [I, I, P, P, P]
+    so.otter_poa_heaviest.argtypes = [P] * 5 + [I, I, P, P, P, P]
+    so.otter_poa_heaviest_stream.restype = I
+    so.otter_poa_heaviest_stream.argtypes = [P] * 4 + [I] * 7 + [P, P, P]
+    so.emu_set_stagger.argtypes = [I]
     return so
 
 
@@ -143,9 +146,78 @@ def test_cuda_source_emulated_matches_plain(emulated, in_smem):
     h = torch.empty_like(want_h)
     min_eid = torch.empty_like(want_m)
     max_nodes = batch.max_nodes if in_smem else 1 << 20
+    h_pos = torch.empty_like(want_h)
     assert emulated.otter_poa_heaviest(
-        *[t.data_ptr() for t in batch[:7]], batch.meta.shape[0], max_nodes,
-        h.data_ptr(), min_eid.data_ptr(), None) == 0
+        *[t.data_ptr() for t in batch[:5]], batch.meta.shape[0], max_nodes,
+        h_pos.data_ptr(), h.data_ptr(), min_eid.data_ptr(), None) == 0
     assert np.array_equal(h.numpy().view(np.int32),
                           want_h.numpy().view(np.int32))
     assert torch.equal(min_eid, want_m)
+
+
+@pytest.mark.parametrize("ring,stagger", [
+    (K12.RING, 0), ((1, 2, 3), 0), ((1, 2, 3), 1), ((1, 2, 3), -1),
+    ((2, 3, 2), 1), ((2, 3, 2), -1)])
+def test_cuda_source_stream_emulated_matches_plain(emulated, ring, stagger):
+    """The streamed kernel equals the plain version bit for bit on graphs
+    of up to ~140 nodes: with the default rings, and with rings of two
+    chunks of 4-8 elements and of four of 4-8, far shorter than a graph
+    (both streams wrap their rings many times); the blocks' three warps run
+    together, or one at a time (``emu_set_stagger``; a warp hands its turn
+    on where it waits on an mbarrier), from the walker or from the last
+    producer. Every output word is written (the buffers start poisoned)."""
+    sets = _seeded(13, 9)
+    arrs = [graph_arrays(_build(Ppoa, s, sp)) for s, sp in sets]
+    batch = K12.pack_graphs([(a[0], a[1], a[2], a[5]) for a in arrs])
+    assert K12.stream_fits(batch, ring)
+    lg_slots, lg_pos, lg_edge = ring
+    largest = int(batch.meta[:, 1].max())
+    assert ring == K12.RING or largest > 4 << lg_slots + max(lg_pos,
+                                                             lg_edge)
+    want_h, want_m = K12.poa_heaviest_torch(batch)
+    h = torch.full_like(want_h, float("nan"))
+    min_eid = torch.full_like(want_m, -7)
+    emulated.emu_set_stagger(stagger)
+    try:
+        assert emulated.otter_poa_heaviest_stream(
+            batch.in_ptr.data_ptr(), batch.e_rec.data_ptr(),
+            batch.node_of.data_ptr(), batch.meta.data_ptr(),
+            batch.meta.shape[0], batch.max_nodes, batch.in_ptr.shape[0],
+            batch.e_rec.shape[0], *ring, h.data_ptr(), min_eid.data_ptr(),
+            None) == 0
+    finally:
+        emulated.emu_set_stagger(0)
+    assert np.array_equal(h.numpy().view(np.int32),
+                          want_h.numpy().view(np.int32))
+    assert torch.equal(min_eid, want_m)
+
+
+def test_stream_route_by_size():
+    """K12's route: the streamed kernel while every graph has at most
+    STREAM_NODES nodes and every node's in-edges fit the edge ring (at
+    most 2^lg_slots chunks), else the device-memory kernel; pack_graphs
+    records each position's in-edges, in ascending edge id, as (graph-local
+    source position, weight bits, edge id)."""
+    sets = _seeded(13, 3)
+    arrs = [graph_arrays(_build(Ppoa, s, sp)) for s, sp in sets]
+    batch = K12.pack_graphs([(a[0], a[1], a[2], a[5]) for a in arrs])
+    assert batch.max_in_edges == max(
+        int(np.bincount(a[1]).max()) for a in arrs)
+    assert K12.stream_fits(batch)
+    assert not K12.stream_fits(batch._replace(
+        max_nodes=K12.STREAM_NODES + 1))
+    wide = batch._replace(max_in_edges=9)
+    assert K12.stream_fits(wide, (1, 2, 3))
+    assert not K12.stream_fits(wide, (1, 3, 2))
+    in_ptr = batch.in_ptr.numpy()
+    rec = batch.e_rec.numpy()
+    assert in_ptr[-1] == len(rec) == sum(len(a[0]) for a in arrs)
+    for (src, sink, w, *_r), (off, n, *_m) in zip(arrs,
+                                                  batch.meta.numpy()):
+        node = batch.node_of.numpy()[off : off + n] - off  # by position
+        for p in range(n):
+            r = rec[in_ptr[off + p] : in_ptr[off + p + 1]]
+            assert (np.diff(r[:, 2]) > 0).all()
+            assert (sink[r[:, 2]] == node[p]).all()
+            assert (src[r[:, 2]] == node[r[:, 0]]).all()
+            assert np.array_equal(r[:, 1], w[r[:, 2]].view(np.int32))

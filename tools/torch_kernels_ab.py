@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K7, K2, K3, K4, K8 and K9 kernels of one checkout on
-one CUDA card.
+"""Time the port's K7, K2, K3, K4, K8, K9, K11 and K12 kernels of one
+checkout on one CUDA card.
 
     python3 tools/torch_kernels_ab.py ROOT [NAME [KERNELS]]
 
@@ -41,7 +41,14 @@ one JSON line per set with its mean kernel time and a hash of its result
   2047, 4095 and 8191 (with k = 512, every P-warp instance); with the
   kernel and instance each k takes where the checkout has
   ``ends_free_shape``. The jobs come from the generators of the
-  ``chip_smoke.py`` beside this tool, whichever tree is timed.
+  ``chip_smoke.py`` beside this tool, whichever tree is timed;
+* K11 (``linkage``) on ``chip_smoke.py``'s tie-free matrices at n = 129
+  and 1,001 (seed 11), with the route each takes where the checkout has
+  ``linkage_plan``;
+* K12 (``poa_heaviest``) on seeded graphs of hifi-tr-1.5k's shape (64
+  graphs of ~1.75 k nodes) and of the refscale region's (one of ~13.1 k
+  nodes and ~11.5 k levels), with the route where the checkout has
+  ``stream_fits``.
 
 Inputs come from fixed seeds, so equal hashes mean equal results. Needs a
 card; nothing is written.
@@ -128,6 +135,46 @@ def kde_sets(torch, dev, reps_for):
         yield f"K8 {what}, {R} x {n}", args, n, reps_for(R * n)
 
 
+def k11_sets():
+    """(n, D) of K11's sets: chip_smoke.py's kernel_k11 matrices, tie-free
+    (a permutation of n (n - 1) / 2 distinct values) at n = 129 and 1,001
+    from seed 11, in that order."""
+    rs = np.random.default_rng(11)
+    for n in (129, 1001):
+        m = n * (n - 1) // 2
+        cond = (rs.permutation(m) + 1.0) / (m + 1.0)
+        sq = np.zeros((n, n), dtype=np.float32)
+        sq[np.triu_indices(n, 1)] = cond
+        yield n, sq + sq.T
+
+
+def own_synth():
+    """``otter_tpu_torch/utils/synth.py`` of this tool's own checkout, for
+    its graph generator, so that every tree timed gets the same graphs (its
+    package imports resolve to the timed tree's, which every tree has)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "otter_tpu_torch", "utils", "synth.py")
+    spec = importlib.util.spec_from_file_location(
+        "otter_tpu_torch.utils.own_synth", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k12_sets():
+    """(name, graphs) of K12's sets, from fixed seeds: 64 graphs shaped
+    like hifi-tr-1.5k's (1.5-1.83 k backbone nodes, ~1.75 k nodes, ~1.9 k
+    edges, up to ~1.87 k levels) and one like the refscale region's (11.4 k
+    backbone, ~13.1 k nodes, ~16.6 k edges, ~11.5 k levels)."""
+    poa_shaped_graph = own_synth().poa_shaped_graph
+    rs = np.random.default_rng(12)
+    yield "K12 64 graphs of hifi-tr-1.5k's shape", [
+        poa_shaped_graph(rs, int(rs.integers(1500, 1831)), 60, 40, 40)
+        for _ in range(64)]
+    yield "K12 1 graph of the refscale region's shape", [
+        poa_shaped_graph(rs, 11400, 1600, 80, 1800)]
+
+
 def refscale_reads():
     """100 reads of each of two 10 kb alleles (the second 300 bp longer) at
     0.2% substitutions, from a fixed seed."""
@@ -203,6 +250,28 @@ def main() -> int:
                     ms, out = time_ms(lambda: K8.kde_scaled_cuda(
                         *args, n_max=n, warps=W, cells=C), reps)
                     emit(what, ms, out, W=W, C=C)
+    if wanted("K11"):
+        from otter_tpu_torch.kernels import linkage as K11
+
+        for n, sq in k11_sets():
+            D = torch.from_numpy(sq)[None].to(dev)
+            kw = ({"route": list(K11.linkage_plan(n))}
+                  if hasattr(K11, "linkage_plan") else {})
+            ms, out = time_ms(lambda: K11.linkage_cuda(D), 5)
+            emit(f"K11 n {n}, tie-free", ms, out,
+                 us_step=round(1e3 * ms / (n - 1), 3), **kw)
+    if wanted("K12"):
+        from otter_tpu_torch.kernels import poa_heaviest as K12
+
+        for what, graphs in k12_sets():
+            batch = K12.pack_graphs(graphs).to(dev)
+            kw = ({"route": "stream" if K12.stream_fits(batch) else "global"}
+                  if hasattr(K12, "stream_fits") else {})
+            levels = batch.max_depth + 1
+            ms, out = time_ms(lambda: K12.poa_heaviest_cuda(batch), 20)
+            emit(what, ms, out, levels=levels, nodes=batch.node_of.shape[0],
+                 edges=int(batch.in_ptr[-1]),
+                 us_level=round(1e3 * ms / levels, 4), **kw)
     if wanted("K7"):
         for k, n_pairs, lo, hi, reps in ((63, 1024, 1500, 1800, 3),
                                          (1023, 256, 2500, 3000, 2),
