@@ -116,7 +116,8 @@ exits non-zero:
    equal to K7's plain version and densities bit-identical across the
    meshes; ``dryrun_multichip`` in full on both meshes (its assemble and
    genotype byte-identical to the CPU run); K14 (that batch, and
-   hifi-tr-1.5k's 160,429 pairs over 32 regions) and K13 (through
+   hifi-tr-1.5k's 160,429 pairs over 32 regions; its grouping sort and the
+   grouping + kernel timed beside it) and K13 (through
    ``kde_tree`` on K8's three sets) against their plain versions (a
    relative 1e-6 a cell, the cells not bit-equal counted) and timed; then
    hifi-tr-1.5k and the refscale region with ``OTTER_TPU_FUSED_KDE=1`` and
@@ -444,6 +445,14 @@ def sass_loops(lib: str) -> None:
         L = int(lanes.group(1) or lanes.group(2)) if lanes else 0
         per_cell = (f" ({longest / L:.1f} per cell over L = {L} lanes)"
                     if lanes else "")
+        if "kde_pairs_kernel" in fn_name and loops:
+            # K14: the longest loop is the chunk's pairs at a thread's grid
+            # point, unrolled; one exp (MUFU.EX2) a term
+            size, first, last = max(loops)
+            terms = sum("MUFU.EX2" in t for at, t in ins
+                        if first <= at <= last)
+            per_cell = (f" ({size / max(terms, 1):.1f} per term over its "
+                        f"{terms} terms)")
         cells = re.search(r"kde_scaled_kernelILi(\d+)E", fn_name)
         if cells:
             # K8's step loops (with the reciprocal division or __fdiv_rn,
@@ -2760,7 +2769,8 @@ def hifi_pair_inputs(rs, dev, n_pairs: int = 160429, n_regions: int = 32):
 def kernel_k14(dev, leg, rs) -> dict:
     """K14 against its plain version on the card, timed with its bound, on
     the regions leg's batch (its K7 distances) and at hifi-tr-1.5k's
-    160,429 pairs over 32 regions. Returns the first set's JSON fields."""
+    160,429 pairs over 32 regions; the grouping (``group_pairs``) and the
+    grouping + kernel timed too. Returns the first set's JSON fields."""
     import torch
 
     from otter_tpu_torch.kernels import kde_pairs as K14
@@ -2785,17 +2795,25 @@ def kernel_k14(dev, leg, rs) -> dict:
         check(ok, f"K14 disagrees with its plain version on the {name} set "
               f"(max rel {rel:.3g})")
         ms = time_ms(lambda: K14.kde_pairs_cuda(*args, grouped=grouped), 5)
+        group_ms = time_ms(lambda: K14.group_pairs(args[3], args[4],
+                                                   args[5].shape[0]), 5)
+        step_ms = time_ms(lambda: K14.kde_pairs_cuda(*args), 5)
         pairs = int(args[4].sum())
         evals = float(pairs * xs.numel())
         moved = nbytes(*args) + 4 * got.numel()
         bound_ms, bound_by = kde_bound(evals, moved, KDE_TERM_F32_OPS)
+        sizes = grouped[1][1:] - grouped[1][:-1]
         log(f"K14 kde_pairs, {name}: {pairs} pairs x {xs.numel()} grid "
-            f"points, max rel diff {rel:.3g} (tolerance 1e-6, 1e-30 "
-            f"absolute), {int((got != plain).sum())} of {got.numel()} cells "
-            f"not bit-equal; kernel {ms:.3f} ms (grouping excluded), plain "
-            f"{plain_ms:.3f} ms ({evals / ms / 1e9:.2f} G evaluations/s "
-            f"kernel); bound {bound_ms:.4f} ms by {bound_by}, "
-            f"{100 * bound_ms / ms:.2f}% of it; library call: none")
+            f"points, {int(sizes.max())} pairs in the largest region, "
+            f"{int(((sizes + K14.CHUNK - 1) // K14.CHUNK).clamp(min=1).sum())}"
+            f" chunks of {K14.CHUNK}; max rel diff {rel:.3g} (tolerance "
+            f"1e-6, 1e-30 absolute), {int((got != plain).sum())} of "
+            f"{got.numel()} cells not bit-equal; kernel {ms:.4f} ms "
+            f"(grouping excluded), grouping (group_pairs) {group_ms:.4f} ms, "
+            f"grouping + kernel {step_ms:.4f} ms, plain {plain_ms:.3f} ms "
+            f"({evals / ms / 1e9:.2f} G evaluations/s kernel); bound "
+            f"{bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.2f}% of "
+            f"it; library call: none")
         if out is None:
             out = {"max_abs_err": float(diff.max()), "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound_ms,

@@ -6,9 +6,10 @@
 // zeros to kRowLanes (or the next power of two past it): lane i is added to
 // lane i + w / 2 while w halves, as the plain versions add it.
 //
-// One block a row, one thread a padded lane, the tree in shared memory with
-// one barrier a level; the work is a few thousand floats, so the launch is
-// the cost.
+// normalize_kernel: one block a row, one thread a padded lane, the tree in
+// shared memory with one barrier a level; the work is a few thousand
+// floats, so the launch is the cost. row_total is the tree alone, for a
+// kernel that finishes its rows itself (K14).
 
 #pragma once
 
@@ -41,6 +42,20 @@ inline int row_lanes(int n_cells) {
   return lanes <= kMaxLanes ? lanes : 0;
 }
 
+// the halving tree over t[0 .. lanes) in shared memory (lanes a power of
+// two, the row's values then zeros), by the whole block; returns the total
+// (max 1e-30) to every thread. The block's threads stop writing t before it.
+__device__ __forceinline__ float row_total(float* t, int lanes) {
+  for (int w = lanes; w > 1; w >>= 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < w / 2; i += blockDim.x) {
+      t[i] = __fadd_rn(t[i], t[i + w / 2]);
+    }
+  }
+  __syncthreads();
+  return fmaxf(t[0], 1e-30f);
+}
+
 // raw (R, n_cells) and div (R,) -> out (R, n_cells): d = raw / div[r],
 // out = d / max(sum d, 1e-30) with the sum in the halving order; blockDim.x
 // = the row's padded lanes (a power of two), shared memory one float each.
@@ -54,12 +69,8 @@ normalize_kernel(const float* __restrict__ raw, const float* __restrict__ div,
   const size_t at = static_cast<size_t>(r) * n_cells + g;
   const float d = g < n_cells ? __fdiv_rn(raw[at], div[r]) : 0.0f;
   t[g] = d;
-  for (int w = blockDim.x; w > 1; w >>= 1) {
-    __syncthreads();
-    if (g < w / 2) t[g] = __fadd_rn(t[g], t[g + w / 2]);
-  }
-  __syncthreads();
-  if (g < n_cells) out[at] = __fdiv_rn(d, fmaxf(t[0], 1e-30f));
+  const float total = row_total(t, blockDim.x);
+  if (g < n_cells) out[at] = __fdiv_rn(d, total);
 }
 
 // launch normalize_kernel on ``stream``; returns the CUDA error

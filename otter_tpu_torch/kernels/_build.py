@@ -144,7 +144,7 @@ def load() -> ctypes.CDLL:
                                            _I, _I, _P, _P, _P, _P]
             lib.otter_kde_pairs.restype = _I
             lib.otter_kde_pairs.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I,
-                                            _I, _P, _P, _P, _P]
+                                            _I, _I, _P, _P, _P, _P]
             lib.otter_kde_scaled_geometry.restype = _I
             lib.otter_kde_scaled_geometry.argtypes = [_I, _I, _I, _I, _P]
             lib.otter_kmer_counts.restype = _I

@@ -11,10 +11,13 @@ Counterpart of the KDE half of ``region_batch_step`` in
            (INV_SQRT_2PI / h) exp(-(z z) / 2),  z = (x - norm) / h
     dens = raw / max(count, 1), then / max(row total, 1e-30).
 
-XLA leaves the order of the segment sum open; here it is fixed: a region's
-valid pairs in input order (``group_pairs``), one sum a grid point, the row
-total the halving tree of ``kde_scaled.normalize_rows_torch``. So the
-densities are deterministic and the same bits at every mesh size.
+XLA leaves the order of the segment sum open; here it is fixed and
+independent of the card: a region's valid pairs in input order
+(``group_pairs``) cut into consecutive chunks of ``CHUNK`` pairs, each
+chunk's sum a grid point in pair order, the region's raw sum its chunk sums
+added in chunk order (a region of at most ``CHUNK`` pairs: one sequential
+sum), the row total the halving tree of ``kde_scaled.normalize_rows_torch``.
+So the densities are deterministic and the same bits at every mesh size.
 
 ``kde_pairs_cuda`` launches the hand-written kernel (``csrc/kde_pairs.cu``),
 ``kde_pairs_torch`` is the plain PyTorch version of the same arithmetic in
@@ -30,6 +33,9 @@ import torch
 
 from .kde_scaled import INV_SQRT_2PI, normalize_rows_torch, row_lanes
 from .myers_pallas import data_ptr
+
+# pairs a chunk of a region's sum (csrc/kde_pairs.cu kChunk)
+CHUNK = 256
 
 
 def linspace_grid(grid_pts: int) -> np.ndarray:
@@ -66,45 +72,76 @@ def group_pairs(region_id: torch.Tensor, pair_valid: torch.Tensor,
     """(order, starts): the pairs sorted by region, each region's in input
     order (a stable sort; the invalid pairs last), and each region's
     offset into ``order`` (R + 1,), both int32, computed where the inputs
-    lie without a copy to the host. A pair whose region is outside [0, R)
-    counts nowhere, as in a segment sum."""
-    rid = region_id.to(torch.int64)
+    lie without a copy to the host (a binary search of the sorted keys
+    gives the offsets, so nothing waits on the card). A pair whose region
+    is outside [0, R) counts nowhere, as in a segment sum."""
+    rid = region_id.to(torch.int32)
     key = torch.where(pair_valid & (rid >= 0) & (rid < n_regions), rid,
                       n_regions)
-    order = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key, minlength=n_regions + 1)[:n_regions]
-    starts = torch.zeros(n_regions + 1, dtype=torch.int64,
-                         device=key.device)
-    starts[1:] = torch.cumsum(counts, 0)
-    return order.to(torch.int32), starts.to(torch.int32)
+    keys, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(
+        keys, torch.arange(n_regions + 1, dtype=torch.int32,
+                           device=key.device), out_int32=True)
+    return order.to(torch.int32), starts
 
 
 def kde_pairs_torch(d: torch.Tensor, m: torch.Tensor, n: torch.Tensor,
                     region_id: torch.Tensor, pair_valid: torch.Tensor,
                     bw: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K14: the kernel's sums in its order, vectorised over
-    regions (step j adds each region's j-th pair; a region that has no
-    j-th pair keeps its sum). Returns (R, G) f32."""
+    the chunks of every region (step i adds each chunk's i-th pair; a chunk
+    that has no i-th pair keeps its sum), then each region's chunk sums
+    added in chunk order. Returns (R, G) f32."""
     _check(d, m, n, region_id, pair_valid, bw, xs)
     R = bw.shape[0]
+    dev = bw.device
     order, starts = group_pairs(region_id, pair_valid, R)
     order = order.to(torch.int64)
     starts = starts.to(torch.int64)
     counts = starts[1:] - starts[:-1]
+    # a region's chunks (an empty region has one, empty), numbered region
+    # after region
+    n_chunks = torch.clamp((counts + CHUNK - 1) // CHUNK, min=1)
+    first = torch.cumsum(n_chunks, 0) - n_chunks
+    total = int(n_chunks.sum())
+    region = torch.repeat_interleave(torch.arange(R, device=dev), n_chunks,
+                                     output_size=total)
+    j = torch.arange(total, device=dev) - first[region]
+    lo = starts[region] + j * CHUNK
+    size = torch.clamp(counts[region] - j * CHUNK, 0, CHUNK)
     length = torch.clamp(torch.maximum(m, n).to(torch.float32), min=1.0)
     norm = (d.to(torch.float32) / length)[order]
-    h = bw[:, None]
-    c = torch.tensor(INV_SQRT_2PI, device=bw.device) / h
-    raw = torch.zeros((R, xs.shape[0]), dtype=torch.float32,
-                      device=bw.device)
-    last = max(0, int(starts[-1]) - 1)
-    for j in range(int(counts.max()) if R else 0):
-        v = norm[torch.clamp(starts[:-1] + j, max=last)]
+    h = bw[region][:, None]
+    c = torch.tensor(INV_SQRT_2PI, device=dev) / h
+    part = torch.zeros((total, xs.shape[0]), dtype=torch.float32, device=dev)
+    last = max(0, order.shape[0] - 1)
+    for i in range(int(size.max()) if total else 0):
+        v = norm[torch.clamp(lo + i, max=last)]
         z = (xs[None, :] - v[:, None]) / h
         term = c * torch.exp((z * z) * -0.5)
-        raw = torch.where((counts > j)[:, None], raw + term, raw)
+        part = torch.where((size > i)[:, None], part + term, part)
+    raw = part[first]
+    for q in range(1, int(n_chunks.max()) if R else 1):
+        nxt = part[torch.clamp(first + q, max=total - 1)]
+        raw = torch.where((n_chunks > q)[:, None], raw + nxt, raw)
     div = torch.clamp(counts.to(torch.float32), min=1.0)
     return normalize_rows_torch(raw, div)
+
+
+def _tickets(device: torch.device, stream: int, n_regions: int
+             ) -> torch.Tensor:
+    """The zero ticket array of ``stream`` on ``device``, at least
+    ``n_regions`` long: every launch leaves it zero, and the launches of
+    one stream take it in turn."""
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.shape[0] < n_regions:
+        t = torch.zeros(max(n_regions, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+_TICKETS: dict = {}
 
 
 def kde_pairs_cuda(d: torch.Tensor, m: torch.Tensor, n: torch.Tensor,
@@ -113,9 +150,8 @@ def kde_pairs_cuda(d: torch.Tensor, m: torch.Tensor, n: torch.Tensor,
                    ) -> torch.Tensor:
     """K14 on the card (``csrc/kde_pairs.cu``): the pairs grouped on the
     card (``group_pairs``, or ``grouped``, its result for these inputs),
-    then one launch of the sums and one of the row normalisation on the
-    current stream, no synchronisation. Raises on bad inputs or a refused
-    launch."""
+    then one launch on the current stream, no synchronisation. Raises on
+    bad inputs or a refused launch."""
     from . import _build
 
     _check(d, m, n, region_id, pair_valid, bw, xs)
@@ -126,15 +162,17 @@ def kde_pairs_cuda(d: torch.Tensor, m: torch.Tensor, n: torch.Tensor,
     if R == 0 or G == 0:
         return out
     order, starts = grouped or group_pairs(region_id, pair_valid, R)
-    raw = torch.empty_like(out)
-    div = torch.empty(R, dtype=torch.float32, device=d.device)
+    n_pairs = order.shape[0]
+    partial = torch.empty((n_pairs // CHUNK + R, G), dtype=torch.float32,
+                          device=d.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(d.device).cuda_stream
     with torch.cuda.device(d.device):
+        tickets = _tickets(d.device, stream, R)
         err = lib.otter_kde_pairs(
             data_ptr(d), data_ptr(m), data_ptr(n), data_ptr(order),
-            data_ptr(starts), data_ptr(bw), data_ptr(xs), G, R,
-            data_ptr(raw), data_ptr(div), data_ptr(out), stream)
+            data_ptr(starts), data_ptr(bw), data_ptr(xs), G, R, n_pairs,
+            data_ptr(partial), data_ptr(tickets), data_ptr(out), stream)
     _build.check(lib, err, "kde_pairs_cuda")
     kde_pairs_cuda.launches += 1
     return out

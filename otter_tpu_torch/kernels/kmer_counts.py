@@ -81,12 +81,16 @@ def kmer_counts_torch(seqs: torch.Tensor, offsets: torch.Tensor,
 def kmer_counts_cuda(seqs: torch.Tensor, offsets: torch.Tensor,
                      k: int) -> torch.Tensor:
     """K10 on the card (``csrc/kmer_counts.cu``): one launch on the current
-    stream, no synchronisation. Raises on bad inputs or a refused launch."""
+    stream, no synchronisation; ``seqs`` 4-byte aligned (a tensor's own
+    storage is). Raises on bad inputs or a refused launch."""
     from . import _build
 
     _check(seqs, offsets, k)
     if not seqs.is_cuda:
         raise ValueError("kmer_counts_cuda takes CUDA tensors")
+    if data_ptr(seqs) % 4:
+        raise ValueError("kmer_counts_cuda reads seqs as 4-byte words: its "
+                         "data must be 4-byte aligned")
     n = offsets.shape[0] - 1
     width = 4 ** k + 1
     # the kernel writes a shared-memory histogram out whole; past 4^7 + 1

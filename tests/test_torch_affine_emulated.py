@@ -1,8 +1,9 @@
 """The CUDA source of K5 and K6 (otter_tpu_torch/csrc/affine_tb.cu) run on
 the CPU: g++ compiles it against a small emulation of the CUDA surface it
 uses (each block a set of std::threads, one per CUDA thread; a warp meets
-at every shuffle, vote and __syncwarp, a block at every __syncthreads;
-atomicAdd is an atomic add of the host; the emulation also serves the
+at every shuffle, vote and __syncwarp, a block at every
+__syncthreads; atomicAdd is an atomic add of the host, __threadfence its
+fence; the emulation also serves the
 other CUDA sources' emulated tests), and the
 kernels' results are held
 against the plain PyTorch version, exactly. This checks the warp-level
@@ -415,6 +416,11 @@ inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
 template <class T> T atomicAdd(T* p, T v) {
   return std::atomic_ref<T>(*p).fetch_add(v);
 }
+// a fence of the host; a load past the L1: a plain load
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+template <class T> T __ldcg(const T* p) { return *p; }
 inline unsigned __vcmpeq4(unsigned a, unsigned b) {
   unsigned r = 0;
   for (int c = 0; c < 4; ++c) {

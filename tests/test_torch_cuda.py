@@ -662,16 +662,20 @@ def test_assemble_mesh_cuda_byte_identical(cuda_device, tmp_path,
     assert texts[0] == texts[1] and texts[0]
 
 
-@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 6, 7, 8, 10])
 def test_kmer_counts_cuda_matches_plain(cuda_device, k):
-    """K10 on the card equals its plain version: shared-memory histograms
-    at k = 1 and 3, device-memory atomics at k = 8."""
+    """K10 on the card equals its plain version at every route: shared-
+    memory histograms of 8 warps a block (k = 1-5), 2 (k = 6) and 1 past
+    48 KB (k = 7), device-memory atomics at k = 8 and 10; 0-3 lanes ahead;
+    alleles of every length mod 4, shorter than k and empty, non-ACGT
+    bytes, lengths past several 32-word tiles."""
     from otter_tpu_torch.kernels import kmer_counts as K10
 
     rng = random.Random(k)
     seqs = ["".join(rng.choice("ACGTacgtN") for _ in range(rng.randint(0,
                                                                        400)))
-            for _ in range(300)] + ["", "A", "ACG"]
+            for _ in range(300 if k < 10 else 20)] + [
+        "", "A", "ACG", "ACGTN" * 3, "x" * 7]
     blob = "".join(seqs).encode()
     offsets = np.zeros(len(seqs) + 1, dtype=np.int32)
     np.cumsum([len(s) for s in seqs], out=offsets[1:])
@@ -912,29 +916,46 @@ def test_kde_tree_cuda_matches_plain(cuda_device, shape):
                                                      warps=W, cells=C))
 
 
-@pytest.mark.parametrize("n_pairs,n_regions", [(40, 3), (11904, 128),
-                                               (5000, 2)])
-def test_kde_pairs_cuda_matches_plain(cuda_device, n_pairs, n_regions):
+@pytest.mark.parametrize("n_pairs,n_regions,grid_pts,sizes", [
+    (40, 3, 401, None), (11904, 128, 401, None), (5000, 2, 401, None),
+    (0, 4, 401, [3 * 256 + 5, 0, 256, 257]), (0, 3, 1000, [2000, 1, 600]),
+    (0, 2, 100, [1500, 300])])
+def test_kde_pairs_cuda_matches_plain(cuda_device, n_pairs, n_regions,
+                                      grid_pts, sizes):
     """K14 on the card against its plain version on the card, regions
     interleaved, INF and invalid pairs included: a relative 1e-6 a cell,
-    an absolute 1e-30 for subnormals."""
+    an absolute 1e-30 for subnormals. Regions of one chunk and past several
+    (the last block of a region adds the chunk sums; ``sizes`` gives exact
+    region sizes, an empty region among them) at 100, 401 and 1000 grid
+    points; the ticket array zero after the launch, and a second launch the
+    same bits."""
     from otter_tpu_torch.kernels import kde_pairs as K14
 
-    rng = np.random.default_rng(n_pairs)
+    rng = np.random.default_rng(n_pairs + sum(sizes or []))
+    if sizes is not None:
+        rid = np.repeat(np.arange(n_regions, dtype=np.int32), sizes)
+        n_pairs = len(rid)
+        valid = np.ones(n_pairs, dtype=bool)
+        perm = rng.permutation(n_pairs)
+        rid = rid[perm]
+    else:
+        rid = rng.integers(0, n_regions, n_pairs).astype(np.int32)
+        valid = rng.random(n_pairs) > 0.1
     m = rng.integers(80, 300, n_pairs).astype(np.int32)
     n = (m + rng.integers(-5, 6, n_pairs)).astype(np.int32)
     d = (rng.random(n_pairs) * 0.05 * m).astype(np.int32)
     d[rng.random(n_pairs) < 0.05] = 1 << 24
-    rid = rng.integers(0, n_regions, n_pairs).astype(np.int32)
-    valid = rng.random(n_pairs) > 0.1
     bw = np.where(np.arange(n_regions) % 2, 0.015, 0.01).astype(np.float32)
     args = [torch.from_numpy(x).to(cuda_device) for x in (
-        d, m, n, rid, valid, bw, K14.linspace_grid(401))]
+        d, m, n, rid, valid, bw, K14.linspace_grid(grid_pts))]
     before = K14.kde_pairs_cuda.launches
     got = K14.kde_pairs(*args)
     assert K14.kde_pairs_cuda.launches == before + 1
     torch.testing.assert_close(got, K14.kde_pairs_torch(*args), rtol=1e-6,
                                atol=1e-30)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert not K14._tickets(cuda_device, stream, n_regions).any()
+    assert torch.equal(K14.kde_pairs_cuda(*args), got)
 
 
 def test_sharded_step_cuda_two_shards(cuda_device):

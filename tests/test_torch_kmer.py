@@ -104,3 +104,62 @@ def test_cuda_source_emulated_matches_plain(emulated, k):
                                       len(offsets) - 1, k, got.data_ptr(),
                                       None) == 0
     assert torch.equal(got, want)
+
+
+def _edge_alleles(seed):
+    """Alleles of every length 0-13 and a few past a 32-word tile (up to
+    300 bytes), so starts and ends fall at every offset of a 4-byte word;
+    non-ACGT bytes (N, n, x, a NUL) on word edges of the packed blob."""
+    rng = random.Random(seed)
+    lens = list(range(14)) + [31, 32, 33, 127, 128, 129, 130, 131, 257, 300]
+    rng.shuffle(lens)
+    seqs = ["".join(rng.choice("ACGTacgt") for _ in range(n)) for n in lens]
+    blob = bytearray("".join(seqs).encode())
+    for pos in range(3, len(blob), 4):
+        if rng.random() < 0.15:
+            blob[pos] = ord(rng.choice("Nnx\0"))
+            if pos + 1 < len(blob) and rng.random() < 0.5:
+                blob[pos + 1] = ord("N")
+    out, at = [], 0
+    for n in lens:
+        out.append(blob[at : at + n].decode("latin-1"))
+        at += n
+    return out
+
+
+def _emulated_counts(so, seqs, offsets, k):
+    want = K10.kmer_counts_torch(seqs, offsets, k)
+    got = torch.full_like(want, -7) if want.shape[1] <= 4 ** 7 + 1 \
+        else torch.zeros_like(want)  # the device-memory route adds in
+    assert so.otter_kmer_counts(seqs.data_ptr(), offsets.data_ptr(),
+                                len(offsets) - 1, k, got.data_ptr(),
+                                None) == 0
+    return got, want
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 6, 8, 10])
+def test_cuda_source_emulated_word_edges(emulated, k):
+    """The CUDA source at k = 1 (no lane ahead), 2-5 (one), 6 and 8 (two)
+    and 10 (three; device-memory histograms from k = 8, shared ones of 1, 2
+    and 8 warps a block below): alleles of every length mod 4, shorter than
+    k and empty, over several tiles, non-ACGT bytes on word edges; every
+    count equal to the plain version's and the scalar oracle's, the shared
+    histograms written out whole (no -7 left)."""
+    alleles = _edge_alleles(k)
+    if k == 10:  # 4^10 + 1 counts an allele
+        alleles = alleles[:: 4] + ["", "ACGTNACGTACG" * 3]
+    seqs, offsets = _packed(alleles)
+    got, want = _emulated_counts(emulated, seqs, offsets, k)
+    assert torch.equal(got, want)
+    for s, row in zip(alleles, want):
+        assert np.array_equal(row.numpy(), seq2kcounts(k, s)), s
+
+
+def test_cuda_source_refuses_unaligned_seqs(emulated):
+    """The CUDA source reads 4-byte words: a seqs pointer off a word
+    boundary is refused (a CUDA error, nothing counted)."""
+    seqs, offsets = _packed(["ACGTACGT", "ACG"])
+    got = torch.full((2, 65), -7, dtype=torch.int32)
+    assert emulated.otter_kmer_counts(seqs.data_ptr() + 1, offsets.data_ptr(),
+                                      2, 3, got.data_ptr(), None) != 0
+    assert (got == -7).all()

@@ -108,6 +108,28 @@ def test_sharded_step_matches_jax(n_devices):
     assert torch.equal(dens, dens1) and torch.equal(d, d1)
 
 
+@pytest.mark.parametrize("n_devices", [1, 2])
+def test_sharded_step_chunked_regions_match_jax(n_devices):
+    """The step with regions past several K14 chunks (3 CHUNK + 5 pairs
+    over 2 regions: 3 and 4 chunks) against the JAX step: distances equal,
+    densities within DENS_RTOL (DENS_ATOL), bit-equal across mesh sizes."""
+    n_pairs = 3 * K14.CHUNK + 5
+    a, bp, mn, rid, valid, k, L = _example_pair_batch(n_pairs=n_pairs,
+                                                      length=40)
+    assert int(valid.sum()) == n_pairs
+    bw = np.asarray([0.01, 0.015], dtype=np.float32)
+    dj, densj = _jax_step(a, bp, mn, rid, valid, bw, k, L, 2)
+    args = (a, bp, mn[:, 0], mn[:, 1], rid, valid, bw)
+    d, dens = port_mesh.run_sharded_region_step(_mesh(n_devices), *args,
+                                                k=k, max_rows=L, n_regions=2)
+    d1, dens1 = port_mesh.run_sharded_region_step(_mesh(1), *args, k=k,
+                                                  max_rows=L, n_regions=2)
+    assert np.array_equal(d.numpy(), dj)
+    np.testing.assert_allclose(dens.numpy(), densj, rtol=DENS_RTOL,
+                               atol=DENS_ATOL)
+    assert torch.equal(dens, dens1)
+
+
 def _mixed_batch(seed):
     """Pairs of three regions interleaved, with lengths 0-300, N bases,
     pairs whose length difference passes the band (INF), invalid pairs and
@@ -387,24 +409,86 @@ def _pair_inputs(seed, n_pairs, n_regions):
     return d, m, n, rid, valid, bw
 
 
-def _pairs_reference(d, m, n, rid, valid, bw, xs, exp):
-    """K14 in numpy f32: a region's valid pairs summed in input order, then
-    the normalisation, with ``exp`` for the exponential."""
-    R, G = len(bw), len(xs)
+def _pairs_terms(d, m, n, rid, valid, bw, xs, exp):
+    """(per region: its valid pairs in input order, the term row of each
+    pair) of K14 in numpy f32, with ``exp`` for the exponential."""
+    R = len(bw)
     norm = (d.astype(np.float32)
             / np.maximum(np.maximum(m, n).astype(np.float32), np.float32(1)))
-    raw = np.zeros((R, G), dtype=np.float32)
-    counts = np.zeros(R, dtype=np.float32)
+    pairs = [[] for _ in range(R)]
     for p in range(len(d)):
-        if not valid[p] or not 0 <= rid[p] < R:
-            continue
-        r = rid[p]
+        if valid[p] and 0 <= rid[p] < R:
+            pairs[rid[p]].append(p)
+
+    def term(r, p):
         h = bw[r]
         z = (xs - norm[p]) / h
-        raw[r] = raw[r] + (K8.INV_SQRT_2PI / h) * exp((z * z)
-                                                      * np.float32(-0.5))
-        counts[r] += 1
+        return (K8.INV_SQRT_2PI / h) * exp((z * z) * np.float32(-0.5))
+
+    return pairs, term
+
+
+def _pairs_reference(d, m, n, rid, valid, bw, xs, exp, chunk=K14.CHUNK):
+    """K14 in numpy f32: a region's valid pairs in input order cut into
+    chunks of ``chunk``, each chunk summed in order, the chunk sums added in
+    chunk order; then the normalisation, with ``exp`` for the
+    exponential."""
+    R, G = len(bw), len(xs)
+    pairs, term = _pairs_terms(d, m, n, rid, valid, bw, xs, exp)
+    raw = np.zeros((R, G), dtype=np.float32)
+    for r in range(R):
+        sums = []
+        for c0 in range(0, max(len(pairs[r]), 1), chunk):
+            s = np.zeros(G, dtype=np.float32)
+            for p in pairs[r][c0 : c0 + chunk]:
+                s = s + term(r, p)
+            sums.append(s)
+        raw[r] = sums[0]
+        for s in sums[1:]:
+            raw[r] = raw[r] + s
+    counts = np.asarray([len(x) for x in pairs], dtype=np.float32)
     return _normalize_np(raw, np.maximum(counts, np.float32(1)))
+
+
+def _pairs_reference_sequential(d, m, n, rid, valid, bw, xs, exp):
+    """The order before the chunks: a region's valid pairs summed in input
+    order from 0, then the normalisation."""
+    R, G = len(bw), len(xs)
+    pairs, term = _pairs_terms(d, m, n, rid, valid, bw, xs, exp)
+    raw = np.zeros((R, G), dtype=np.float32)
+    for r in range(R):
+        for p in pairs[r]:
+            raw[r] = raw[r] + term(r, p)
+    counts = np.asarray([len(x) for x in pairs], dtype=np.float32)
+    return _normalize_np(raw, np.maximum(counts, np.float32(1)))
+
+
+def _sized_pair_inputs(seed, sizes, n_invalid=9):
+    """``_pair_inputs`` with region r holding exactly sizes[r] valid pairs,
+    ``n_invalid`` invalid pairs and one out-of-range region id among them,
+    the regions interleaved at random."""
+    rng = np.random.default_rng(seed)
+    rid = np.concatenate([np.full(c, r, dtype=np.int32)
+                          for r, c in enumerate(sizes)]
+                         + [rng.integers(0, len(sizes), n_invalid,
+                                         dtype=np.int32),
+                            np.asarray([len(sizes)], dtype=np.int32)])
+    valid = np.arange(len(rid)) < sum(sizes)
+    valid[-1] = True  # out of range: counts nowhere
+    perm = rng.permutation(len(rid))
+    d, m, n, _rid, _valid, bw = _pair_inputs(seed, len(rid), len(sizes))
+    return d, m, n, rid[perm], valid[perm], bw
+
+
+def _reinterleave(seed, rid, valid, *cols):
+    """The same pairs with the regions interleaved another way: each
+    region's (and the invalid pairs') relative order kept."""
+    label = np.where(valid, rid, -1)
+    new = np.random.default_rng(seed).permutation(label)
+    idx = np.empty(len(label), dtype=np.int64)
+    for lab in np.unique(label):
+        idx[new == lab] = np.nonzero(label == lab)[0]
+    return (rid[idx], valid[idx]) + tuple(c[idx] for c in cols)
 
 
 def _k14_lib(tmp_path_factory, test_exp):
@@ -413,7 +497,7 @@ def _k14_lib(tmp_path_factory, test_exp):
     so = build_emulated(tmp_path_factory, src)
     P, I = ctypes.c_void_p, ctypes.c_int
     so.otter_kde_pairs.restype = I
-    so.otter_kde_pairs.argtypes = [P] * 7 + [I, I, P, P, P, P]
+    so.otter_kde_pairs.argtypes = [P] * 7 + [I, I, I, P, P, P, P]
     return so
 
 
@@ -428,18 +512,27 @@ def k14_emulated_test_exp(tmp_path_factory):
 
 
 def _k14_run(so, d, m, n, rid, valid, bw, xs):
+    """The CUDA source's densities; its ticket array, zero before, is zero
+    again after."""
     order, starts = (t.numpy() for t in K14.group_pairs(
         torch.from_numpy(rid), torch.from_numpy(valid), len(bw)))
     R, G = len(bw), len(xs)
-    raw = np.full((R, G), -7, dtype=np.float32)
-    div = np.full(R, -7, dtype=np.float32)
+    partial = np.full((len(order) // K14.CHUNK + R, G), -7, dtype=np.float32)
+    tickets = np.zeros(R, dtype=np.int32)
     out = np.full((R, G), -7, dtype=np.float32)
     order = np.ascontiguousarray(order)
     assert so.otter_kde_pairs(
         d.ctypes.data, m.ctypes.data, n.ctypes.data, order.ctypes.data,
         starts.ctypes.data, bw.ctypes.data, xs.ctypes.data, G, R,
-        raw.ctypes.data, div.ctypes.data, out.ctypes.data, None) == 0
+        len(order), partial.ctypes.data, tickets.ctypes.data,
+        out.ctypes.data, None) == 0
+    assert not tickets.any()
     return out
+
+
+def _k14_plain(*arrays):
+    return K14.kde_pairs_torch(*(torch.from_numpy(x)
+                                 for x in arrays)).numpy()
 
 
 @pytest.mark.parametrize("n_pairs,n_regions,grid_pts", [
@@ -447,8 +540,8 @@ def _k14_run(so, d, m, n, rid, valid, bw, xs):
 def test_k14_cuda_source_emulated_sum_order(k14_emulated_test_exp, n_pairs,
                                             n_regions, grid_pts):
     """K14 as written for the card, exp swapped for an f32 function: the
-    densities equal the numpy order (a region's valid pairs in input
-    order, chunks of 1,024 staged pairs included) bit for bit; the plain
+    densities equal the numpy order (a region's valid pairs in chunks of
+    CHUNK, the chunk sums in chunk order) bit for bit; the plain
     version's order is the same."""
     d, m, n, rid, valid, bw = _pair_inputs(n_pairs, n_pairs, n_regions)
     xs = K14.linspace_grid(grid_pts)
@@ -457,27 +550,97 @@ def test_k14_cuda_source_emulated_sum_order(k14_emulated_test_exp, n_pairs,
                                                 _exp_test))
 
 
+C = K14.CHUNK
+
+
+@pytest.mark.parametrize("sizes,grid_pts", [
+    ([C], 401), ([C + 1], 401), ([3 * C + 5], 401),
+    ([3 * C + 5, 0, C + 1, 2], 200), ([2 * C, 17], 1000), ([C + 1, 3], 100)])
+def test_k14_cuda_source_emulated_chunks(k14_emulated_test_exp, sizes,
+                                         grid_pts):
+    """K14 as written for the card on regions of exactly CHUNK, CHUNK + 1
+    and 3 CHUNK + 5 pairs (an empty region among them; every points-a-thread
+    instance: 100, 200, 401 and 1000 grid points), exp swapped for an f32
+    function: bit for bit the numpy chunk order, which differs from the
+    one sequential sum only past CHUNK pairs."""
+    d, m, n, rid, valid, bw = _sized_pair_inputs(sum(sizes), sizes)
+    xs = K14.linspace_grid(grid_pts)
+    got = _k14_run(k14_emulated_test_exp, d, m, n, rid, valid, bw, xs)
+    want = _pairs_reference(d, m, n, rid, valid, bw, xs, _exp_test)
+    assert np.array_equal(got, want)
+    seq = _pairs_reference_sequential(d, m, n, rid, valid, bw, xs, _exp_test)
+    for r, size in enumerate(sizes):
+        if size <= C:
+            assert np.array_equal(got[r], seq[r])
+
+
+@pytest.mark.parametrize("sizes", [[C], [1, C, 93, 120, 66], [0, 5, 2]])
+def test_k14_small_regions_keep_the_sequential_order(k14_emulated_test_exp,
+                                                     sizes):
+    """Regions of at most CHUNK pairs (the regions leg's ~93) keep the one
+    sequential sum of the design before the chunks bit for bit: the CUDA
+    source with the f32 stand-in for exp against that numpy order, and the
+    plain version against that order written in PyTorch."""
+    d, m, n, rid, valid, bw = _sized_pair_inputs(7 + len(sizes), sizes)
+    xs = K14.linspace_grid(401)
+    got = _k14_run(k14_emulated_test_exp, d, m, n, rid, valid, bw, xs)
+    assert np.array_equal(got, _pairs_reference_sequential(
+        d, m, n, rid, valid, bw, xs, _exp_test))
+    R = len(bw)
+    ts = [torch.from_numpy(x) for x in (d, m, n, rid, valid, bw, xs)]
+    order, starts = K14.group_pairs(ts[3], ts[4], R)
+    norm = (ts[0].float() / torch.clamp(torch.maximum(ts[1], ts[2]).float(),
+                                        min=1.0))[order.long()]
+    raw = torch.zeros((R, len(xs)), dtype=torch.float32)
+    h = ts[5][:, None]
+    c = torch.tensor(K8.INV_SQRT_2PI) / h
+    for r in range(R):
+        for i in range(int(starts[r]), int(starts[r + 1])):
+            z = (ts[6] - norm[i]) / h[r]
+            raw[r] = raw[r] + c[r] * torch.exp((z * z) * -0.5)
+    div = torch.clamp((starts[1:] - starts[:-1]).float(), min=1.0)
+    want = K8.normalize_rows_torch(raw, div)
+    assert torch.equal(torch.from_numpy(_k14_plain(d, m, n, rid, valid, bw,
+                                                   xs)), want)
+
+
+@pytest.mark.parametrize("sizes", [[3 * C + 5, 40, C + 1], [30, 7, 12]])
+def test_k14_interleaving_changes_nothing(k14_emulated_test_exp, sizes):
+    """The same pairs with the regions interleaved another way (each
+    region's own order kept): the same densities bit for bit, from the CUDA
+    source (f32 stand-in for exp) and from the plain version."""
+    d, m, n, rid, valid, bw = _sized_pair_inputs(3 + len(sizes), sizes)
+    rid2, valid2, d2, m2, n2 = _reinterleave(5, rid, valid, d, m, n)
+    assert not np.array_equal(rid2, rid)
+    xs = K14.linspace_grid(401)
+    for run in (lambda *a: _k14_run(k14_emulated_test_exp, *a), _k14_plain):
+        assert np.array_equal(run(d, m, n, rid, valid, bw, xs),
+                              run(d2, m2, n2, rid2, valid2, bw, xs))
+
+
 def test_k14_cuda_source_emulated_match_plain(k14_emulated):
     """K14 as written for the card (expf) against its plain version: a
-    relative 1e-6 a cell (an absolute 1e-30 for subnormals)."""
-    d, m, n, rid, valid, bw = _pair_inputs(9, 300, 3)
+    relative 1e-6 a cell (an absolute 1e-30 for subnormals), at a region
+    of a few chunks too."""
     xs = K14.linspace_grid(401)
-    got = _k14_run(k14_emulated, d, m, n, rid, valid, bw, xs)
-    want = K14.kde_pairs_torch(*(torch.from_numpy(x)
-                                 for x in (d, m, n, rid, valid, bw, xs)))
-    np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-30)
+    for inputs in (_pair_inputs(9, 300, 3),
+                   _sized_pair_inputs(9, [3 * C + 5, 40])):
+        got = _k14_run(k14_emulated, *inputs, xs)
+        np.testing.assert_allclose(got, _k14_plain(*inputs, xs), rtol=1e-6,
+                                   atol=1e-30)
 
 
-def test_k14_plain_order_is_numpy():
+@pytest.mark.parametrize("sizes", [None, [3 * C + 5, 2, C]])
+def test_k14_plain_order_is_numpy(sizes):
     """K14's plain version against the numpy order with numpy's exp: a
     relative 1e-6 (the two exps), and the JAX step's densities within
     DENS_RTOL on the same distances."""
-    d, m, n, rid, valid, bw = _pair_inputs(3, 500, 5)
+    inputs = (_pair_inputs(3, 500, 5) if sizes is None
+              else _sized_pair_inputs(3, sizes))
     xs = K14.linspace_grid(401)
-    got = K14.kde_pairs_torch(*(torch.from_numpy(x)
-                                for x in (d, m, n, rid, valid, bw, xs)))
-    want = _pairs_reference(d, m, n, rid, valid, bw, xs, np.exp)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-30)
+    got = _k14_plain(*inputs, xs)
+    want = _pairs_reference(*inputs, xs, np.exp)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-30)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K7, K2, K3, K4, K8, K9, K11 and K12 kernels of one
-checkout on one CUDA card.
+"""Time the port's K7, K2, K3, K4, K8, K9, K10, K11, K12 and K14 kernels of
+one checkout on one CUDA card.
 
     python3 tools/torch_kernels_ab.py ROOT [NAME [KERNELS]]
 
@@ -48,10 +48,19 @@ one JSON line per set with its mean kernel time and a hash of its result
 * K12 (``poa_heaviest``) on seeded graphs of hifi-tr-1.5k's shape (64
   graphs of ~1.75 k nodes) and of the refscale region's (one of ~13.1 k
   nodes and ~11.5 k levels), with the route where the checkout has
-  ``stream_fits``.
+  ``stream_fits``;
+* K10 (``kmer_counts``) on the allele batches genotype64 and genotype500
+  hand it (k = 3; ``chip_smoke.py``'s cohorts, made in a temporary
+  directory and genotyped with ``OTTER_TPU_KMER_DEVICE=1``) and on
+  genotype64's first 256 alleles at k = 8 (device-memory histograms);
+* K14 (``kde_pairs``) on the JAX bench regions leg's batch (11,904 pairs
+  over 128 regions, its K7 distances) and at hifi-tr-1.5k's 160,429 pairs
+  over 32 regions (``chip_smoke.py``'s ``regions_leg_batch`` and
+  ``hifi_pair_inputs``), the grouping given; beside it the grouping
+  (``group_pairs``) and the grouping + kernel.
 
 Inputs come from fixed seeds, so equal hashes mean equal results. Needs a
-card; nothing is written.
+card; nothing is written but K10's cohorts, in a temporary directory.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -175,6 +185,49 @@ def k12_sets():
         poa_shaped_graph(rs, 11400, 1600, 80, 1800)]
 
 
+def k10_sets(cs, torch):
+    """(name, seqs, offsets, k) of K10's sets: the batch genotype64's and
+    genotype500's cohorts (``chip_smoke.py``'s seeds) hand K10 on the card,
+    and genotype64's first 256 alleles at k = 8."""
+    from otter_tpu_torch.kernels import kmer_counts as K10
+
+    batches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n, r, seed in (("genotype64", 64, 32, 5),
+                                 ("genotype500", 500, 8, 23)):
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            bam, bed, fa = own_synth().cohort_fixture(d, n, r, seed)
+            with cs.Settings(OTTER_TPU_KMER_DEVICE="1"), \
+                    cs.Recorder(K10, "kmer_counts") as rec:
+                cs.genotype_text(bam, bed, fa)
+            batches[name] = rec.calls[0]
+    for name, (seqs, offsets, k) in batches.items():
+        yield f"K10 {name}'s batch, k {k}", seqs, offsets, k
+    seqs, offsets = batches["genotype64"][:2]
+    yield ("K10 genotype64's first 256 alleles, k 8",
+           seqs[: int(offsets[256])].contiguous(), offsets[:257].contiguous(),
+           8)
+
+
+def k14_sets(cs, torch, dev, K7):
+    """(name, args) of K14's sets: the regions leg's batch with its K7
+    distances and hifi-tr-1.5k's pairs, from fixed seeds, the grid's 401
+    points last."""
+    from otter_tpu_torch.kernels.kde_pairs import linspace_grid
+
+    xs = torch.from_numpy(linspace_grid(401)).to(dev)
+    a, bp, mn, rid, valid, bw, k, _L = cs.regions_leg_batch(
+        np.random.default_rng(14))
+    d = K7.edit_banded(*(torch.from_numpy(x).to(dev) for x in (a, bp, mn)),
+                       k)
+    yield "K14 regions leg, 11,904 pairs over 128 regions", [d] + [
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        for x in (mn[:, 0], mn[:, 1], rid, valid, bw)] + [xs]
+    yield "K14 hifi-tr-1.5k pairs, 160,429 over 32 regions", \
+        cs.hifi_pair_inputs(np.random.default_rng(1514), dev) + [xs]
+
+
 def refscale_reads():
     """100 reads of each of two 10 kb alleles (the second 300 bp longer) at
     0.2% substitutions, from a fixed seed."""
@@ -272,6 +325,26 @@ def main() -> int:
             emit(what, ms, out, levels=levels, nodes=batch.node_of.shape[0],
                  edges=int(batch.in_ptr[-1]),
                  us_level=round(1e3 * ms / levels, 4), **kw)
+    if wanted("K10"):
+        from otter_tpu_torch.kernels import kmer_counts as K10
+
+        for what, seqs, offsets, k in k10_sets(smoke_jobs(), torch):
+            ms, out = time_ms(lambda: K10.kmer_counts_cuda(seqs, offsets, k),
+                              50)
+            emit(what, ms, out, alleles=offsets.shape[0] - 1,
+                 bytes=seqs.shape[0])
+    if wanted("K14"):
+        from otter_tpu_torch.kernels import kde_pairs as K14
+
+        for what, args in k14_sets(smoke_jobs(), torch, dev, K7):
+            group = K14.group_pairs(args[3], args[4], args[5].shape[0])
+            group_ms, _ = time_ms(lambda: K14.group_pairs(
+                args[3], args[4], args[5].shape[0]), 20)
+            step_ms, _ = time_ms(lambda: K14.kde_pairs_cuda(*args), 20)
+            ms, out = time_ms(lambda: K14.kde_pairs_cuda(*args,
+                                                         grouped=group), 20)
+            emit(what, ms, out, group_ms=round(group_ms, 4),
+                 step_ms=round(step_ms, 4))
     if wanted("K7"):
         for k, n_pairs, lo, hi, reps in ((63, 1024, 1500, 1800, 3),
                                          (1023, 256, 2500, 3000, 2),
