@@ -39,7 +39,10 @@ exits non-zero:
    (expf against torch.exp);
 4. small main path: the port's ``assemble`` on the card writes the same SAM
    and FASTA bytes as on an exact host engine (native C++ distances, host
-   ends-free DP, native affine ladder);
+   ends-free DP, native affine ladder) and as the port's host mode
+   (``device="host"``: no engine, the python read extractor, the numpy
+   pair DP, region by region), with every kernel's launch count set to 0
+   just before each host-mode run and still 0 after it;
 5. full-size main path: cell hifi-tr-1.5k (32 HiFi tandem-repeat loci at
    coverage 100, het alleles of 1.5 and 1.8 kb), with its rates; and a
    route-coverage run (4 loci with non-spanning reads, a 2.4 kb allele and
@@ -60,10 +63,15 @@ exits non-zero:
    and 500-sample x 8-region cohorts, the card's GEMM route
    (``OTTER_TPU_GENOTYPE_DEVICE=1``) and the host BLAS route (the default)
    in turns with their regions/s, each VCF byte-identical to the port's
-   sequential host path; ``compare`` on a seeded truth / query pair on the
-   card's engine, byte-identical to the scalar path; ``vcf2mat`` on the
-   64-sample VCF and ``wgat`` on a seeded aligned assembly, checked against
-   what their inputs hold;
+   host mode (the sequential path with the python allele parser);
+   ``compare`` on a seeded truth / query pair on the card's engine,
+   byte-identical to the host mode (the scalar path); every host-mode run
+   with no kernel launched; ``vcf2mat`` on the 64-sample VCF and ``wgat``
+   on a seeded aligned assembly, checked against what their inputs hold;
+   then ``assemble --device host`` on phase 4's cells and ``genotype
+   --device host`` on genotype64 in fresh processes (``--dist-worker``):
+   the same bytes, no launch and no CUDA context made; and one line with
+   the host mode's walls beside the card's;
 7. ``-t`` and several processes: hifi-tr-1.5k at ``-t 1`` and ``-t 8`` in
    turns (walls, ``host_io``), each byte-identical to phase 5's card
    output, and with ``OTTER_TPU_FINISH_POOL=1 -t 8`` (eight spawned
@@ -115,7 +123,7 @@ exits non-zero:
    JAX bench regions leg's (11,904 pairs over 128 regions), distances
    equal to K7's plain version and densities bit-identical across the
    meshes; ``dryrun_multichip`` in full on both meshes (its assemble and
-   genotype byte-identical to the CPU run); K14 (that batch, and
+   genotype byte-identical to the port's host mode); K14 (that batch, and
    hifi-tr-1.5k's 160,429 pairs over 32 regions; its grouping sort and the
    grouping + kernel timed beside it) and K13 (through
    ``kde_tree`` on K8's three sets) against their plain versions (a
@@ -223,8 +231,9 @@ KDE_F32_OPS = 7
 # K13's and K14's a (cell, value): sub, div, 2 mul, the product by
 # INV_SQRT_2PI / h, add
 KDE_TERM_F32_OPS = 6
-# set by phase 1: the SM clock (Hz)
-CARD = {"sm_hz": None}
+# set by phase 1: the SM clock (Hz) and the card's nvidia-smi name and
+# power limit
+CARD = {"sm_hz": None, "line": None}
 
 
 def log(msg: str) -> None:
@@ -364,6 +373,7 @@ def phase_environment() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
+    CARD["line"] = card
     log(card)
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -1499,6 +1509,8 @@ def params(**kw):
 
 
 def run(bam, bed, backend, ref="", **kw) -> str:
+    """The port's assemble of (bam, bed) on ``backend``'s engine, or with
+    ``device="host"`` in ``kw`` (and no backend) in the host mode."""
     from otter_tpu_torch.models.assemble import assemble
 
     out = io.StringIO()
@@ -1507,20 +1519,62 @@ def run(bam, bed, backend, ref="", **kw) -> str:
     return out.getvalue()
 
 
-def phase_small(tmp: str) -> None:
+def all_wrappers() -> dict:
+    """Every kernel's wrapper (K1-K14) by name."""
+    return {**cuda_wrappers(), **opt_in_wrappers(), **step_wrappers()}
+
+
+# what -> {"host": wall s of the host mode, "card": wall s on the card}
+HOST_WALLS: dict = {}
+
+
+def host_run(what: str, fn):
+    """(wall s, result) of ``fn()``, a run of the port's host mode
+    (``device="host"``), with every kernel's launch count set to 0 just
+    before and read just after: each must still be 0."""
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    check(not launched, f"{what}: the host mode launched {launched}")
+    return wall, out
+
+
+def phase_small(tmp: str) -> dict:
+    """Returns the small cells' BAM and BED and the host mode's SAM."""
+    import torch
+
     from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
     from otter_tpu_torch.utils.synth import tandem_repeat_loci
 
-    log("== phase 4: small main path against the host engine")
+    log("== phase 4: small main path against the host engine and the "
+        "host mode")
     bam, bed = tandem_repeat_loci(tmp, n_regions=3, cov=24, err=0.003,
                                   expansion=30, region_len=300, seed=5,
                                   name="small")
+    small = dict(bam=bam, bed=bed)
     for label, kw in (("sam", {}), ("fasta", {"is_fa": True})):
+        t0 = time.perf_counter()
         got = run(bam, bed, TorchDistBackend("cuda"), **kw)
+        torch.cuda.synchronize()
+        card_wall = time.perf_counter() - t0
         want = run(bam, bed, HostBackend(), **kw)
-        log(f"small {label}: {len(got)} bytes, identical {got == want}")
+        host_wall, host = host_run(
+            f"small {label}", lambda: run(bam, bed, None, device="host",
+                                          **kw))
+        HOST_WALLS[f"small {label}"] = {"host": host_wall, "card": card_wall}
+        log(f"small {label}: {len(got)} bytes, identical to the host engine "
+            f"{got == want}, to the host mode {got == host}; walls: card "
+            f"{card_wall:.3f} s, host mode {host_wall:.3f} s (no launch)")
         check(got == want, f"small {label}: card output differs from the "
               "host engine")
+        check(got == host, f"small {label}: card output differs from the "
+              "host mode")
+        small[label] = host
+    return small
 
 
 # kernels of mesh mode alone (phase 8): device="cuda" leaves their jobs on
@@ -1704,8 +1758,7 @@ def phase_full(tmp: str, fixtures: list, oracle):
 # ---------------------------------------------------------------------------
 
 
-def genotype_text(bam, bed, fa, device="cuda", batched=True,
-                  max_error=None):
+def genotype_text(bam, bed, fa, device="cuda", max_error=None):
     """(wall s, VCF text, metrics snapshot) of one port genotype run
     (``max_error``: genotype's -e, the length cut)."""
     import torch
@@ -1721,7 +1774,7 @@ def genotype_text(bam, bed, fa, device="cuda", batched=True,
     out = io.StringIO()
     metrics.reset()
     t0 = time.perf_counter()
-    genotype(p, bam, bed, fa, out=out, batched=batched)
+    genotype(p, bam, bed, fa, out=out)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, out.getvalue(), metrics.snapshot()
 
@@ -1731,15 +1784,17 @@ def genotype_cohort(tmp: str, name: str, n_samples: int, n_regions: int,
     """One cohort of bench_e2e's genotype cells: the card's GEMM route
     (OTTER_TPU_GENOTYPE_DEVICE=1) and the host-BLAS route (the default) in
     turns (card, host, host, card) after a warm-up of each, each VCF
-    byte-identical to the port's sequential host path; regions/s of both.
-    Returns the cohort's BAM, BED and FASTA paths, the VCF's path and the
-    VCF."""
+    byte-identical to the port's host mode (``device="host"``: the
+    sequential path, the python allele parser, no launch); regions/s of
+    both. Returns the cohort's BAM, BED and FASTA paths, the VCF's path and
+    the VCF."""
     from otter_tpu_torch.utils.synth import cohort_fixture
 
     d = os.path.join(tmp, name)
     os.makedirs(d)
     bam, bed, fa = cohort_fixture(d, n_samples, n_regions, seed)
-    t_seq, want, _snap = genotype_text(bam, bed, fa, "cpu", batched=False)
+    _w, (t_seq, want, _snap) = host_run(
+        name, lambda: genotype_text(bam, bed, fa, "host"))
     walls = {"card": [], "host BLAS": []}
     gemm = {}
     for route in ("warm-up", "card", "host BLAS", "host BLAS", "card"):
@@ -1752,7 +1807,7 @@ def genotype_cohort(tmp: str, name: str, n_samples: int, n_regions: int,
         if route == "warm-up":
             continue
         check(text == want, f"{name}: the {route} route's VCF differs from "
-              "the sequential host path")
+              "the host mode")
         walls[route].append(wall)
         gemm[route] = {k[5:]: round(v, 4) for k, v in snap.items()
                        if k.startswith("time.genotype_")}
@@ -1761,13 +1816,15 @@ def genotype_cohort(tmp: str, name: str, n_samples: int, n_regions: int,
           "regions")
     log(f"{name} ({n_samples} samples x {n_regions} regions, "
         f"{2 * n_samples + 1} alleles a region): VCF identical to the "
-        f"sequential host path on both routes ({rows} rows)")
+        f"host mode on both routes ({rows} rows)")
     for route, ws in walls.items():
         log(f"{name} {route} route: walls {', '.join(f'{w:.3f}' for w in ws)}"
             f" s, {n_regions / min(ws):.2f} regions/s (best); phase seconds "
             f"{json.dumps(gemm[route], sort_keys=True)}")
-    log(f"{name} sequential host path: wall {t_seq:.3f} s, "
-        f"{n_regions / t_seq:.2f} regions/s")
+    log(f"{name} host mode: wall {t_seq:.3f} s, "
+        f"{n_regions / t_seq:.2f} regions/s, no launch")
+    HOST_WALLS[name] = {"host": t_seq, "card": min(walls["card"]),
+                        "card, host BLAS": min(walls["host BLAS"])}
     vcf = os.path.join(d, f"{name}.vcf")
     with open(vcf, "w") as fh:
         fh.write(want)
@@ -1777,7 +1834,8 @@ def genotype_cohort(tmp: str, name: str, n_samples: int, n_regions: int,
 def compare_entry(tmp: str) -> None:
     """compare on a seeded truth / query pair (32 regions of 0.3-2.5 kb
     alleles, N bases and N alleles among them): the pooled call on the
-    card's engine, byte-identical to the scalar path; pairs and kernel
+    card's engine, byte-identical to the host mode (``device="host"``: the
+    scalar path, the python allele parser, no launch); pairs and kernel
     launches, counted from 0 just before the card run."""
     import torch
 
@@ -1801,18 +1859,20 @@ def compare_entry(tmp: str) -> None:
     wall = time.perf_counter() - t0
     launched = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
     want = io.StringIO()
-    t0 = time.perf_counter()
-    compare(p, bed, truth, query, out=want, pooled=False)
-    t_scalar = time.perf_counter() - t0
+    host = OtterOpts()
+    host.device = "host"
+    t_scalar, _ = host_run("compare", lambda: compare(host, bed, truth,
+                                                      query, out=want))
+    HOST_WALLS["compare"] = {"host": t_scalar, "card": wall}
     c = backend.engine.counters()
     pairs = c["pairs_k1"] + c["pairs_k3"] + c["pairs_k2"] + c["pairs_k7"]
     log(f"compare: {got.getvalue().count(chr(10))} TSV rows, {pairs} engine "
         f"pairs ({json.dumps({k: c[k] for k in ('pairs_k1', 'pairs_k3', 'pairs_k2', 'pairs_k7')})}), "
-        f"kernel launches {json.dumps(launched)}; identical to the scalar "
-        f"path: {got.getvalue() == want.getvalue()}; wall {wall:.3f} s on "
-        f"the card, scalar path {t_scalar:.3f} s")
+        f"kernel launches {json.dumps(launched)}; identical to the host "
+        f"mode: {got.getvalue() == want.getvalue()}; wall {wall:.3f} s on "
+        f"the card, host mode {t_scalar:.3f} s")
     check(got.getvalue() == want.getvalue() and pairs > 0 and launched,
-          "compare: the card's TSV differs from the scalar path")
+          "compare: the card's TSV differs from the host mode")
     return dict(truth=truth, query=query, bed=bed, text=got.getvalue())
 
 
@@ -1895,7 +1955,32 @@ def wgat_entry(tmp: str) -> None:
         f"{len(dele)} bp; {wall:.3f} s")
 
 
-def phase_entry_points(tmp: str):
+def host_processes(tmp: str, small: dict, g64: dict) -> None:
+    """The port's command line with ``--device host`` in fresh processes
+    (``--dist-worker``): assemble on phase 4's small cells and genotype64,
+    each writing this process's host-mode bytes, with every kernel's
+    launch count 0 and no CUDA context made."""
+    runs = (("small", ["assemble", small["bam"], "-b", small["bed"], "-R",
+                       "S1", "--device", "host"], small["sam"]),
+            ("genotype64", ["genotype", g64["bam"], "-b", g64["bed"], "-r",
+                            g64["fa"], "-e", "0.01", "--device", "host"],
+             g64["text"]))
+    for name, args, want in runs:
+        outs, infos, wall = run_processes(tmp, f"host_{name}", args, 1, {})
+        info = infos[0]
+        launched = {k: v for k, v in info["launches"].items() if v}
+        log(f"{name}, --device host in a fresh process: identical to the "
+            f"host mode here: {outs[0] == want}; launches "
+            f"{json.dumps(launched)}; CUDA context made: "
+            f"{info['cuda_initialized']}; command wall {info['wall']:.3f} s, "
+            f"{wall:.3f} s from start to exit")
+        check(outs[0] == want and not launched
+              and not info["cuda_initialized"],
+              f"{name}, --device host in a fresh process: output differs, "
+              "a kernel launched or a CUDA context was made")
+
+
+def phase_entry_points(tmp: str, small: dict):
     """Returns genotype64's and genotype500's cohorts and VCFs
     (genotype_cohort), and compare's inputs and card TSV (compare_entry)."""
     log("== phase 6: the other entry points")
@@ -1904,6 +1989,9 @@ def phase_entry_points(tmp: str):
     cmp = compare_entry(tmp)
     vcf2mat_entry(g64["vcf"], g64["bed"])
     wgat_entry(tmp)
+    host_processes(tmp, small, g64)
+    log(f"host mode walls (s) beside the card's ({CARD['line']}): "
+        + json.dumps(HOST_WALLS))
     return g64, g500, cmp
 
 
@@ -1965,8 +2053,8 @@ def host_pools(bam: str, bed: str, want: str) -> None:
 def dist_worker_main(argv: list) -> int:
     """``--dist-worker OUT INFO ARGS...``: the port's command line with
     ARGS in this process, its standard output into OUT; each kernel's
-    launches in this process (counted from 0 just before the call) and the
-    call's wall into INFO as JSON."""
+    launches in this process (counted from 0 just before the call), the
+    call's wall and whether it made a CUDA context into INFO as JSON."""
     import contextlib
 
     import torch
@@ -1974,17 +2062,19 @@ def dist_worker_main(argv: list) -> int:
     from otter_tpu_torch.cli.main import main as cli
 
     out_path, info_path, args = argv[0], argv[1], argv[2:]
-    wrappers = cuda_wrappers()
+    wrappers = all_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
     with open(out_path, "w") as fh, contextlib.redirect_stdout(fh):
         rc = cli(args)
-    torch.cuda.synchronize()
+    cuda_initialized = torch.cuda.is_initialized()
+    if cuda_initialized:
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with open(info_path, "w") as fh:
         json.dump({"launches": {k: fn.launches for k, fn in wrappers.items()},
-                   "wall": wall}, fh)
+                   "wall": wall, "cuda_initialized": cuda_initialized}, fh)
     return rc
 
 
@@ -3035,14 +3125,14 @@ def main() -> int:
         try:
             timings = phase_kernels(dev)
             done("phase 3")
-            phase_small(tmp)
+            small = phase_small(tmp)
             done("phase 4")
             launches, runs = phase_full(tmp, fixtures, oracle)
             cell, hifi_text, _wall = runs["cell hifi-tr-1.5k"]
             done("phase 5")
             k2_small_launch(dev, cell["jobs_k2"])
             done("K2 at the cell's launch shape")
-            g64, g500, cmp = phase_entry_points(tmp)
+            g64, g500, cmp = phase_entry_points(tmp, small)
             done("phase 6")
             phase_pools_processes(tmp, fixtures[0], hifi_text, g64)
             done("phase 7")

@@ -5,10 +5,13 @@ and the ``genotype``, ``wgat``, ``vcf2mat`` and ``compare`` subcommands take
 the flags and defaults of ``otter_tpu/cli/main.py`` (command_assemble.cpp:
 20-45, command_genotype.cpp:20-28, command_wgat.cpp:20-28,
 command_vcf2mat.cpp:20-25, command_compare.cpp:20-25). ``--device`` of
-``assemble`` and ``genotype`` chooses ``cuda`` (the default) or ``cpu`` (the
-kernels' plain PyTorch versions, and host BLAS for genotype's GEMM);
-``compare`` runs on the default device, as the JAX CLI's does. The help
-text lists assemble, genotype, wgat and version, like the reference.
+``assemble`` and ``genotype`` chooses ``cuda`` (the default), ``cpu`` (the
+kernels' plain PyTorch versions, and host BLAS for genotype's GEMM) or
+``host`` (the JAX package's pure-host exact mode: no kernel, no engine, no
+process sharding). The JAX CLI's ``auto`` and ``tpu`` are refused: ``auto``
+would carry on on the CPU when no card is found, and ``tpu`` names another
+chip. ``compare`` runs on the default device, as the JAX CLI's does. The
+help text lists assemble, genotype, wgat and version, like the reference.
 """
 
 from __future__ import annotations
@@ -30,8 +33,12 @@ def _print_help() -> None:
 
 
 def _add_device_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="Where the kernels run.")
+    p.add_argument("--device", default="cuda",
+                   choices=["cuda", "cpu", "host"],
+                   help="cuda: the kernels on the card (raises without "
+                   "one); cpu: their plain PyTorch versions; host: no "
+                   "kernel, the sequential pure-host exact path (numpy "
+                   "pair DP, slow on long reads).")
 
 
 def _cmd_assemble(argv: List[str]) -> int:

@@ -70,7 +70,10 @@ class OtterOpts:
     read_group: str = ""
     max_cosdis: float = 0.025
     # execution knobs (no reference analog)
-    device: str = "cuda"       # cuda|cpu: where the kernels run
+    # cuda|cpu|mesh|host: where the kernels run (the card, their plain
+    # versions on the CPU, the visible cards); "host" runs none: the
+    # sequential pure-host path of the JAX package's --device host
+    device: str = "cuda"
     precise_kde: bool = True   # float64 host KDE for bit-parity
 
     def init_offset(self, tmp: str) -> None:

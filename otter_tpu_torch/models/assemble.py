@@ -22,6 +22,12 @@ region (hclust, reassignment, consensus) goes to spawned worker processes
 (``_finish_worker.py``) that touch no card; the distances, the reassignment
 jobs and the device KDE stay with this process's engine. Under a coordinator
 (``parallel/distributed.py``) each process handles its block of regions.
+
+``device="host"`` is the JAX package's pure-host exact mode: no engine, no
+pool, no process sharding; each region in BED order through
+``assemble_region`` (the python read extractor, the numpy pair DP, the
+float64 KDE, the host reassignment DP, the native affine ladder and the
+python POA). It shares none of the batched pipeline and is its oracle.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from ..utils.timestamp import antimestamp
 from ..kernels.dist_backend import TorchDistBackend
 from ..kernels.edit_engine import IndexedPairs
 
-DEVICES = ("cuda", "cpu", "mesh")
+DEVICES = ("cuda", "cpu", "mesh", "host")
 
 DEFAULT_REGION_BATCH = int(os.environ.get("OTTER_TPU_REGION_BATCH", "256"))
 
@@ -196,6 +202,33 @@ def emit_region(params: OtterOpts, work: RegionWork, clustmsg, alleles,
             out.write(alleles[l].to_sam(
                 local_bed.to_sc_string() + "_" + str(l), local_bed.chr,
                 local_bed.start, local_bed.end, params.read_group) + "\n")
+
+
+def cluster_region(params: OtterOpts, work: RegionWork,
+                   distmatrix: DistMatrix):
+    """Clustering + reassignment (its distances by the host DP) +
+    consensus preparation (assemble.cpp:128-141). Returns (clustmsg,
+    alleles, poa_tasks)."""
+    from ..ops.consensus import reassignment_distances_batched
+
+    clustmsg, labels = cluster_labels(params, work, distmatrix)
+    pre = None
+    if work.invalid_indeces:
+        pre = reassignment_distances_batched(work.reads, labels)
+    alleles, tasks = cluster_finish(params, work, distmatrix, clustmsg,
+                                    labels, pre)
+    return clustmsg, alleles, tasks
+
+
+def finish_region(params: OtterOpts, work: RegionWork,
+                  distmatrix: DistMatrix, out: TextIO) -> None:
+    """Clustering -> reassignment -> consensus -> emission
+    (assemble.cpp:128-149), on the host."""
+    from ..ops.consensus import consensus_apply_batched
+
+    clustmsg, alleles, tasks = cluster_region(params, work, distmatrix)
+    consensus_apply_batched(tasks)
+    emit_region(params, work, clustmsg, alleles, out)
 
 
 def _region_pair_coords(n: int) -> np.ndarray:
@@ -586,16 +619,32 @@ def _assemble_batched(params: OtterOpts, bed_regions: List[BED],
         _finish_batch(params, in_flight, dist_backend, out, pool)
 
 
+def assemble_region(params: OtterOpts, local_bed: BED, bam: BamReader,
+                    faidx: Optional[Faidx], reads_only: bool,
+                    out: TextIO) -> None:
+    """One region on the host path (``device="host"``): the numpy pair DP
+    of ``fill_dist_matrix``, then ``finish_region``."""
+    work = prepare_region(params, local_bed, bam, faidx, reads_only, out)
+    if work is None:
+        return
+    distmatrix = DistMatrix(len(work.valid_indeces))
+    if params.max_alleles != 1:
+        fill_dist_matrix(work.ignore_haps, work.reads, work.valid_indeces,
+                         distmatrix)
+    finish_region(params, work, distmatrix, out)
+
+
 def _make_dist_backend(params: OtterOpts,
                        process_index: int = 0) -> TorchDistBackend:
     """The engine for ``params.device`` (for ``cuda``, the card this
     process binds to, ``parallel/distributed.py::bind_device``; for
     ``mesh``, the mesh engine over the process's visible cards); raises if
-    that device is absent."""
+    that device is absent, and for ``host``, which has no engine."""
     from ..parallel.distributed import bind_device
 
-    if params.device not in DEVICES:
-        raise ValueError(f"device must be one of {DEVICES}, "
+    engines = tuple(d for d in DEVICES if d != "host")
+    if params.device not in engines:
+        raise ValueError(f"an engine's device is one of {engines}, "
                          f"not {params.device!r}")
     return TorchDistBackend(bind_device(params.device, process_index))
 
@@ -619,18 +668,29 @@ def assemble_process(params: OtterOpts, bam_path: str, bed_regions: List[BED],
     the engine for ``params.device``; any object with an ``engine`` of the
     same surface runs the same pipeline. With -t > 1 and
     OTTER_TPU_FINISH_POOL=1 the host half of every region runs in a pool of
-    -t spawned worker processes (``_finish_pool``)."""
+    -t spawned worker processes (``_finish_pool``). ``device="host"`` takes
+    no engine and no pool: ``assemble_region`` a region, in BED order,
+    whatever -t is."""
+    host = params.device == "host"
+    if host and dist_backend is not None:
+        raise ValueError('device "host" runs no engine')
     sys.stderr.write(
         f"({antimestamp()}): Processing {bam_path} ({params.read_group})\n")
-    if dist_backend is None:
+    if dist_backend is None and not host:
         dist_backend = _make_dist_backend(params)
     bam = BamReader(bam_path, load_index=True)
     faidx = Faidx(reference) if reference else None
-    pool = _finish_pool(params)
+    pool = None if host else _finish_pool(params)
     try:
         with metrics.phase("region_total"):
-            _assemble_batched(params, bed_regions, bam, faidx, reads_only,
-                              dist_backend, pool, out)
+            if host:
+                for local_bed in bed_regions:
+                    assemble_region(params, local_bed, bam, faidx,
+                                    reads_only, out)
+                    metrics.add("regions")
+            else:
+                _assemble_batched(params, bed_regions, bam, faidx,
+                                  reads_only, dist_backend, pool, out)
     finally:
         if pool is not None:
             pool.close()
@@ -737,6 +797,17 @@ def trim_partial_output(path: str) -> set:
     return done
 
 
+def _write_sam_header(params: OtterOpts, bam_path: str, out: TextIO) -> None:
+    """The SAM header: an @SQ line for each of the BAM's references, then
+    @RG and @PG."""
+    hdr = BamReader(bam_path, load_index=True)
+    for name, ln in zip(hdr.ref_names, hdr.ref_lens):
+        out.write(f"@SQ\tSN:{name}\tLN:{ln}\n")
+    out.write(f"@RG\tID:{params.read_group}\n")
+    out.write(f"@PG\tID:otter\tOF:{params.offset_l},{params.offset_r}\n")
+    hdr.close()
+
+
 def assemble(bam_path: str, bed: str, reference: str, reads_only: bool,
              params: OtterOpts, out: Optional[TextIO] = None,
              resume_from: str = "", dist_backend=None) -> None:
@@ -747,10 +818,15 @@ def assemble(bam_path: str, bed: str, reference: str, reads_only: bool,
     and only process 0 writes the header, so the per-process outputs
     concatenated in process order are the one-process stream; with
     OTTER_TPU_GATHER=1 process 0 writes that whole stream and the others
-    nothing."""
+    nothing. ``device="host"`` joins no coordinator: every process writes
+    the whole stream, header included, as the JAX package's host mode
+    does."""
     from ..parallel.distributed import (gather_enabled, gather_text_to_writer,
                                         process_group, shard_regions)
 
+    if params.device not in DEVICES:
+        raise ValueError(f"device must be one of {DEVICES}, "
+                         f"not {params.device!r}")
     if out is None:
         out = sys.stdout
     bed_regions = parse_bed_file(bed)
@@ -762,6 +838,12 @@ def assemble(bam_path: str, bed: str, reference: str, reads_only: bool,
         sys.stderr.write(
             f"({antimestamp()}): resume: skipping {before - len(bed_regions)} "
             f"completed regions\n")
+    if params.device == "host":
+        if not params.is_fa:
+            _write_sam_header(params, bam_path, out)
+        assemble_process(params, bam_path, bed_regions, reference,
+                         reads_only, out, dist_backend=dist_backend)
+        return
     with process_group() as (pidx, pcount):
         if pcount > 1:
             bed_regions = shard_regions(bed_regions, pidx, pcount)
@@ -773,13 +855,7 @@ def assemble(bam_path: str, bed: str, reference: str, reads_only: bool,
         gather = gather_enabled(pcount)
         body_out: TextIO = io.StringIO() if gather else out
         if not params.is_fa and pidx == 0:
-            hdr = BamReader(bam_path, load_index=True)
-            for name, ln in zip(hdr.ref_names, hdr.ref_lens):
-                body_out.write(f"@SQ\tSN:{name}\tLN:{ln}\n")
-            body_out.write(f"@RG\tID:{params.read_group}\n")
-            body_out.write(
-                f"@PG\tID:otter\tOF:{params.offset_l},{params.offset_r}\n")
-            hdr.close()
+            _write_sam_header(params, bam_path, body_out)
         assemble_process(params, bam_path, bed_regions, reference,
                          reads_only, body_out, dist_backend=dist_backend)
         if gather:

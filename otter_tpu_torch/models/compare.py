@@ -128,10 +128,16 @@ def compare(params: OtterOpts, bed_file: str, reference: str, target: str,
             pooled: bool = True) -> None:
     """(compare.cpp:68-150). The pooled engine call takes the distances
     (``dist_backend`` defaults to the engine for ``params.device``);
-    ``pooled=False`` runs the scalar host DP of every pair instead, the
-    path the pooled one must equal byte for byte."""
+    ``pooled=False``, or ``params.device == "host"``, runs the scalar host
+    DP of every pair instead, with the python allele parser: the path the
+    pooled one must equal byte for byte. Under ``host`` no engine is
+    built."""
     if out is None:
         out = sys.stdout
+    if params.device == "host":
+        if dist_backend is not None:
+            raise ValueError('device "host" runs no engine')
+        pooled = False
     if pooled and dist_backend is None:
         dist_backend = TorchDistBackend(params.device)
     regions = parse_bed_file(bed_file)

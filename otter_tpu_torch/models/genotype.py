@@ -13,6 +13,11 @@ batched pipeline (``genotype_process_batched``), whose pooled cosine GEMM
 runs as host float64 BLAS, or, with ``OTTER_TPU_GENOTYPE_DEVICE=1``, as one
 f32 ``torch.bmm`` on ``device``; both are certified against the scalar f64
 oracle, so the VCF is byte-identical to the sequential host path.
+
+``device="host"`` is the JAX package's pure-host exact mode: the
+sequential path (a region thread pool at -t > 1), the python allele
+parser, no process sharding; a setting that routes to a device function
+runs its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from ..utils.fmt import fmt_double, fmt_float
 from ..utils.timestamp import antimestamp
 
 REFNAME = "OTTER_INTREF"
-DEVICES = ("cuda", "cpu", "mesh")
+DEVICES = ("cuda", "cpu", "mesh", "host")
 
 
 def output_vcf_header(bam_path: str, sample_index: List[str], ref_name: str,
@@ -160,13 +165,16 @@ def _genotype_prep(params: OtterOpts, region: BED, bam: BamReader,
 
 def genotype_card(params: OtterOpts, mesh=None):
     """The one device of genotype's opt-in K10 counts and K11 linkage:
-    ``params.device``, or in mesh mode the mesh's first card."""
+    ``params.device``, in mesh mode the mesh's first card, and under
+    ``host`` the CPU (the functions' plain versions)."""
     if mesh is not None:
         return mesh[0]
     if params.device == "mesh":
         from ..parallel.mesh import make_mesh
 
         return make_mesh()[0]
+    if params.device == "host":
+        return "cpu"
     return params.device
 
 
@@ -496,7 +504,9 @@ def genotype(params: OtterOpts, bam_path: str, bed: str, reference: str,
     Under a coordinator each process handles its block of regions and only
     process 0 writes the VCF header (OTTER_TPU_GATHER=1: process 0 writes
     every row), as ``assemble`` does. ``cuda`` binds the process to its card
-    and raises without one, whichever route the GEMM takes."""
+    and raises without one, whichever route the GEMM takes. ``host`` joins
+    no coordinator and takes the sequential path: every process writes the
+    whole VCF, as the JAX package's host mode does."""
     from ..parallel.distributed import (bind_device, gather_enabled,
                                         gather_text_to_writer, process_group,
                                         shard_regions)
@@ -507,6 +517,12 @@ def genotype(params: OtterOpts, bam_path: str, bed: str, reference: str,
     if out is None:
         out = sys.stdout
     regions = parse_bed_file(bed)
+    if params.device == "host":
+        if mesh is not None:
+            raise ValueError('device "host" runs no mesh')
+        _genotype_regions(params, bam_path, regions, reference, out, 0,
+                          batched=False)
+        return
     with process_group() as (pidx, pcount):
         bind_device(params.device, pidx)
         if pcount > 1:
@@ -516,21 +532,31 @@ def genotype(params: OtterOpts, bam_path: str, bed: str, reference: str,
                 f"{len(regions)} regions\n")
         gather = gather_enabled(pcount)
         body_out: TextIO = io.StringIO() if gather else out
-        si = SampleIndex()
-        si.init(bam_path)
-        sys.stderr.write(
-            f"({antimestamp()}): Found {len(si.index2sample)} samples "
-            "(read-group tags)\n")
-        sys.stderr.write(
-            f"({antimestamp()}): Using offset of {si.offset_l},{si.offset_r}\n")
-        refindex = len(si.index2sample)
-        si.index2sample.append(REFNAME)
-        si.sample2index[REFNAME] = refindex
-        if reference and pidx == 0:
-            output_vcf_header(bam_path, si.index2sample, REFNAME, body_out)
-        genotype_process(params, bam_path, regions, reference, si, refindex,
-                         body_out, batched, mesh=mesh)
+        _genotype_regions(params, bam_path, regions, reference, body_out,
+                          pidx, batched, mesh)
         if gather:
             full = gather_text_to_writer(body_out.getvalue(), pidx, pcount)
             if full is not None:
                 out.write(full)
+
+
+def _genotype_regions(params: OtterOpts, bam_path: str, regions: List[BED],
+                      reference: str, out: TextIO, process_index: int,
+                      batched: bool, mesh=None) -> None:
+    """The sample index with OTTER_INTREF appended, the VCF header (from
+    process 0, with a reference), then ``regions``' rows
+    (genotype.cpp:175-189)."""
+    si = SampleIndex()
+    si.init(bam_path)
+    sys.stderr.write(
+        f"({antimestamp()}): Found {len(si.index2sample)} samples "
+        "(read-group tags)\n")
+    sys.stderr.write(
+        f"({antimestamp()}): Using offset of {si.offset_l},{si.offset_r}\n")
+    refindex = len(si.index2sample)
+    si.index2sample.append(REFNAME)
+    si.sample2index[REFNAME] = refindex
+    if reference and process_index == 0:
+        output_vcf_header(bam_path, si.index2sample, REFNAME, out)
+    genotype_process(params, bam_path, regions, reference, si, refindex,
+                     out, batched, mesh=mesh)

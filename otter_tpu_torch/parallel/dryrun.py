@@ -116,29 +116,34 @@ def _settings(**env):
 def _assemble_text(bam: str, bed: str, read_group: str, mesh=None) -> str:
     """The port's assemble of (bam, bed): on ``mesh`` (its engine split
     over the devices, the device KDE forced on, as the JAX dry run forces
-    its tree KDE), or with ``mesh`` None on the CPU with the kernels'
-    plain versions and the float64 KDE."""
+    its tree KDE), or with ``mesh`` None in the host mode
+    (``device="host"``), as the JAX dry run's oracle runs."""
     from ..config import OtterOpts
     from ..kernels.dist_backend import TorchDistBackend
     from ..models.assemble import assemble
 
     params = OtterOpts()
     params.read_group = read_group
-    params.device = "cpu" if mesh is None else mesh[0].type
-    backend = (TorchDistBackend("cpu") if mesh is None
-               else TorchDistBackend(mesh=mesh))
     out = io.StringIO()
-    with _settings(OTTER_TPU_MESH_KDE="0" if mesh is None else "1"):
-        assemble(bam, bed, "", False, params, out=out, dist_backend=backend)
+    if mesh is None:
+        params.device = "host"
+        assemble(bam, bed, "", False, params, out=out)
+        return out.getvalue()
+    params.device = mesh[0].type
+    with _settings(OTTER_TPU_MESH_KDE="1"):
+        assemble(bam, bed, "", False, params, out=out,
+                 dist_backend=TorchDistBackend(mesh=mesh))
     return out.getvalue()
 
 
 def _genotype_text(bam: str, bed: str, fa: str, mesh=None) -> str:
+    """The port's genotype: its batched pipeline's GEMM split over
+    ``mesh``, or with ``mesh`` None the host mode's sequential path."""
     from ..config import OtterOpts
     from ..models.genotype import genotype
 
     params = OtterOpts()
-    params.device = "cpu" if mesh is None else mesh[0].type
+    params.device = "host" if mesh is None else mesh[0].type
     out = io.StringIO()
     genotype(params, bam, bed, fa, out=out, mesh=mesh)
     return out.getvalue()
@@ -155,13 +160,14 @@ def dryrun_multichip(n_devices: int,
        the example batch: densities (2, 401) finite, each row summing to 1,
        the valid pairs' distances under 40;
     2. the full ``assemble`` with the engine split over the mesh and the
-       device KDE on, byte-identical to the CPU run with the kernels' plain
-       versions and the float64 KDE (the JAX dry run compares with its
-       ``device="host"``, which the port does not have);
+       device KDE on, byte-identical to the port's host mode
+       (``device="host"``: no kernel, no engine), as the JAX dry run
+       holds its mesh run against its ``device="host"``;
     3. regions/s of that assemble on meshes of 1, 2, 4 and 8 devices (up to
        ``n_devices``), each output byte-identical again;
     4. ``genotype`` of two mesh-assembled samples merged into a cohort BAM,
-       its GEMM split over the mesh, byte-identical to the CPU run."""
+       its GEMM split over the mesh, byte-identical to the host mode's
+       sequential path."""
     from ..io.bai import index_bam
     from ..io.bam import parse_sam_to_bam
     from ..utils.synth import region_fixture
@@ -193,11 +199,11 @@ def dryrun_multichip(n_devices: int,
         bam, bed, fa = region_fixture(tmp, n_regions=n_loci, cov=10)
         want = _assemble_text(bam, bed, "S1")
         got = _assemble_text(bam, bed, "S1", mesh)
-        assert got == want, "mesh-sharded assemble diverged from the CPU run"
+        assert got == want, "mesh-sharded assemble diverged from the host mode"
         n_alleles = sum(1 for line in got.splitlines()
                         if line and not line.startswith("@"))
         print(f"dryrun_multichip({n_devices}): full assemble ok - {n_loci} "
-              f"regions, {n_alleles} alleles, byte-identical to the CPU run",
+              f"regions, {n_alleles} alleles, byte-identical to the host mode",
               flush=True)
         result["alleles"] = n_alleles
 
@@ -234,12 +240,12 @@ def dryrun_multichip(n_devices: int,
         parse_sam_to_bam("\n".join(hdr + body) + "\n", cohort)
         index_bam(cohort)
         vcf_mesh = _genotype_text(cohort, bed, fa, mesh)
-        vcf_cpu = _genotype_text(cohort, bed, fa)
-        assert vcf_mesh == vcf_cpu, \
-            "mesh-sharded genotype diverged from the CPU run"
+        vcf_host = _genotype_text(cohort, bed, fa)
+        assert vcf_mesh == vcf_host, \
+            "mesh-sharded genotype diverged from the host mode"
         rows = sum(1 for line in vcf_mesh.splitlines()
                    if line and not line.startswith("#"))
     print(f"dryrun_multichip({n_devices}): full genotype ok - {rows} VCF "
-          "rows (2 samples), byte-identical to the CPU run", flush=True)
+          "rows (2 samples), byte-identical to the host mode", flush=True)
     result["vcf_rows"] = rows
     return result

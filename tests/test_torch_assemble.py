@@ -292,11 +292,12 @@ def test_device_kde_route_by_size(monkeypatch):
     assert _use_device_kde(TorchDistBackend("cpu").engine, small)
 
 
-def test_unknown_device_raises(fixtures):
-    """A device the port has no engine for raises instead of running
-    another path."""
+@pytest.mark.parametrize("device", ["tpu", "auto"])
+def test_unknown_device_raises(fixtures, device):
+    """A device the port refuses (the JAX package's tpu and auto) raises
+    instead of running another path."""
     with pytest.raises(ValueError):
-        _run(assemble, fixtures["het"], "host", "sam")
+        _run(assemble, fixtures["het"], device, "sam")
 
 
 def test_synth_loci_equal_bench_fixture(tmp_path):

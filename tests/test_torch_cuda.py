@@ -982,7 +982,7 @@ def test_sharded_step_cuda_two_shards(cuda_device):
 def test_dryrun_multichip_cuda(cuda_device, two_shards):
     """The port's dry run on the card's mesh and on two shards of card 0:
     every check passes (its assemble and genotype byte-identical to the
-    CPU run)."""
+    port's host mode)."""
     from otter_tpu_torch.parallel.dryrun import dryrun_multichip
 
     if two_shards:

@@ -214,6 +214,8 @@ def test_genotype_cuda_without_card_raises(cohort):
         _port(*cohort, device="cuda")
 
 
-def test_genotype_unknown_device_raises(cohort):
+@pytest.mark.parametrize("device", ["tpu", "auto"])
+def test_genotype_unknown_device_raises(cohort, device):
+    """A device the port refuses (the JAX package's tpu and auto) raises."""
     with pytest.raises(ValueError):
-        _port(*cohort, device="host")
+        _port(*cohort, device=device)

@@ -197,7 +197,7 @@ def test_entry_runs_on_the_cpu():
 def test_dryrun_multichip_cpu(n_devices):
     """dryrun_multichip on a CPU mesh of 1, 2 and 8, as test_parallel.py
     runs the JAX one: its four checks pass (step, assemble and genotype
-    byte-identical to the CPU run)."""
+    byte-identical to the port's host mode)."""
     out = dryrun_multichip(n_devices, devices=_mesh(8))
     assert out["vcf_rows"] >= 6 and out["alleles"] >= 6
     assert set(out["scaling"]["regions_per_sec"]) == {
