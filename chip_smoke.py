@@ -38,8 +38,9 @@ exits non-zero:
    the count of cells whose s is not bit-equal to the plain version's
    (expf against torch.exp);
 4. small main path: the port's ``assemble`` on the card writes the same SAM
-   and FASTA bytes as on an exact host engine (native C++ distances, host
-   ends-free DP, native affine ladder) and as the port's host mode
+   and FASTA bytes as on the exact host engine
+   (``kernels/dist_backend.py::NativeDistBackend``: native C++ distances,
+   host ends-free DP, native affine ladder) and as the port's host mode
    (``device="host"``: no engine, the python read extractor, the numpy
    pair DP, region by region), with every kernel's launch count set to 0
    just before each host-mode run and still 0 after it;
@@ -132,7 +133,16 @@ exits non-zero:
    ``=0`` in turns (walls, K8 on both routes), and hifi-tr-1.5k with
    ``OTTER_TPU_AFFINE_DEVICE=0`` (K5 must not launch),
    ``OTTER_TPU_AFFINE_HINTS=0`` and ``=1``, every output byte-identical to
-   phase 5's.
+   phase 5's;
+11. the benches: the legs of ``python -m otter_tpu_torch.bench``
+   (``otter_tpu_torch/bench/legs.py``: kernel, regions with genotype,
+   genotype64 and genotype500, refscale, ONT, device affine) called in
+   this process at the JAX bench's sizes, one timed rep each, the
+   refscale leg on 1 region without its native wall (the line of cuts
+   names them all), then ``bench/profile.py`` on 96 regions and
+   ``demo.py``; each with every kernel's launch count zeroed before it
+   and printed after it (K1 must launch in the kernel leg, K5 or K6 in the
+   device leg), every ``*_identical`` / ``*_parity`` flag true.
 
 The line before the last is a JSON object with each kernel's launches in
 phase 5 (K9's in phase 8, K10-K12's in phase 9, K13's and K14's in phase
@@ -1444,59 +1454,6 @@ def phase_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-class HostEngine:
-    """Exact engine with the port engine's surface on the host: native C++
-    edit distances and the host ends-free DP; with no ``device`` the
-    consensus takes the native affine ladder."""
-
-    mode = "host"
-    device = None
-
-    def __init__(self):
-        self.threads = os.cpu_count() or 1
-
-    def distances_async_indexed(self, seqs, xi, yi):
-        return [(seqs[a], seqs[b]) for a, b in zip(xi, yi)]
-
-    def distances_async(self, pairs):
-        return list(pairs)
-
-    def distances_collect(self, pairs):
-        from otter_tpu_torch.native import edit_distance_batch
-
-        out = np.zeros(len(pairs), dtype=np.int64)
-        todo = []
-        for i, (x, y) in enumerate(pairs):
-            if not x or not y:
-                out[i] = max(len(x), len(y))
-            elif x != y:
-                todo.append(i)
-        if todo:
-            d, _c = edit_distance_batch([pairs[i] for i in todo],
-                                        self.threads)
-            out[todo] = d
-        return out
-
-    def distances(self, pairs):
-        return self.distances_collect(pairs)
-
-    def ends_free_async(self, jobs):
-        return jobs
-
-    def ends_free_collect(self, jobs):
-        from otter_tpu_torch.ops.align_batch import edit_ends_free_batch
-
-        return edit_ends_free_batch(jobs)
-
-    def ends_free(self, jobs):
-        return self.ends_free_collect(jobs)
-
-
-class HostBackend:
-    def __init__(self):
-        self.engine = HostEngine()
-
-
 def params(**kw):
     from otter_tpu_torch.config import OtterOpts
 
@@ -1547,7 +1504,8 @@ def phase_small(tmp: str) -> dict:
     """Returns the small cells' BAM and BED and the host mode's SAM."""
     import torch
 
-    from otter_tpu_torch.kernels.dist_backend import TorchDistBackend
+    from otter_tpu_torch.kernels.dist_backend import (NativeDistBackend,
+                                                      TorchDistBackend)
     from otter_tpu_torch.utils.synth import tandem_repeat_loci
 
     log("== phase 4: small main path against the host engine and the "
@@ -1561,7 +1519,7 @@ def phase_small(tmp: str) -> dict:
         got = run(bam, bed, TorchDistBackend("cuda"), **kw)
         torch.cuda.synchronize()
         card_wall = time.perf_counter() - t0
-        want = run(bam, bed, HostBackend(), **kw)
+        want = run(bam, bed, NativeDistBackend(), **kw)
         host_wall, host = host_run(
             f"small {label}", lambda: run(bam, bed, None, device="host",
                                           **kw))
@@ -1624,10 +1582,12 @@ def start_host_oracle(tmp: str, fixtures: list) -> subprocess.Popen:
 def host_oracle_main(argv: list) -> int:
     """``--host-oracle DIR BAM BED [BAM BED ...]``: each cell on the exact
     host engine; writes DIR/host_<i>.sam and its wall in DIR/host_<i>.wall."""
+    from otter_tpu_torch.kernels.dist_backend import NativeDistBackend
+
     out_dir, rest = argv[0], argv[1:]
     for i in range(0, len(rest), 2):
         t0 = time.perf_counter()
-        text = run(rest[i], rest[i + 1], HostBackend())
+        text = run(rest[i], rest[i + 1], NativeDistBackend())
         wall = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"host_{i // 2}.sam"), "w") as fh:
             fh.write(text)
@@ -1909,7 +1869,7 @@ def wgat_entry(tmp: str) -> None:
     from otter_tpu_torch.config import OtterOpts
     from otter_tpu_torch.io.bam import BAM_CDEL, BAM_CMATCH, BAM_CSOFT_CLIP
     from otter_tpu_torch.models.wgat import wgat
-    from otter_tpu_torch.utils.synth import read_record, write_bam
+    from otter_tpu_torch.utils.synth import make_bam, read_record
 
     import random
 
@@ -1925,7 +1885,7 @@ def wgat_entry(tmp: str) -> None:
     d = os.path.join(tmp, "wgat")
     os.makedirs(d)
     bam = os.path.join(d, "asm.bam")
-    write_bam(bam, len(ref), recs)
+    make_bam(bam, [("chr1", len(ref))], recs)
     regions = [(s, s + 60) for s in range(1500, 59000, 1000)]
     regions += [(29990, 30050), (39990, 40050)]
     bed = os.path.join(d, "asm.bed")
@@ -3051,6 +3011,76 @@ def phase_region_step(tmp: str, dev, fixtures: list, runs: dict) -> tuple:
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the benches, the profiler and the demo
+# ---------------------------------------------------------------------------
+
+# what phase 11 cuts from ``python -m otter_tpu_torch.bench``'s defaults
+BENCH_CUTS = ("one timed rep a leg (the bench: kernel 6, regions 3, genotype "
+              "3, genotype64 5, genotype500 3, refscale 4, ONT 3, device 3); "
+              "kernel leg's one-core native rate 1 rep (5); refscale leg 1 "
+              "region (2) and no native wall (phase 5 holds that region "
+              "byte-identical to NativeDistBackend)")
+
+
+def phase_benches(tmp: str) -> dict:
+    """The bench's legs (``otter_tpu_torch/bench/legs.py``) in process at
+    the JAX bench's sizes with the cuts of ``BENCH_CUTS``, then the
+    profiler and the demo; every kernel's launch count set to 0 before each
+    and read after it; every parity flag must be true. Returns the legs'
+    fields."""
+    import torch
+
+    from otter_tpu_torch import demo
+    from otter_tpu_torch.bench import legs, profile
+    from otter_tpu_torch.bench.__main__ import failed_flags
+
+    log("== phase 11: the benches, the profiler and the demo")
+    log(f"phase 11 cuts: {BENCH_CUTS}")
+    t0 = time.perf_counter()
+    runs = (
+        ("kernel", lambda: legs.bench_kernel(65536, reps=1, cpu_reps=1)),
+        ("regions", lambda: legs.bench_regions(128, reps=1,
+                                               genotype_reps=1)),
+        ("cohort", lambda: legs.bench_cohort(reps64=1, reps500=1)),
+        ("refscale", lambda: legs.bench_refscale_leg(n_regions=1, reps=1,
+                                                     native=False)),
+        ("ont", lambda: legs.bench_ont_leg(reps=1)),
+        ("device", lambda: legs.bench_device_kernels(reps=1)),
+        ("profile", lambda: profile.profile(96)),
+        ("demo", lambda: demo.main(os.path.join(tmp, "demo"))),
+    )
+    wrappers = all_wrappers()
+    fields: dict = {}
+    for name, fn in runs:
+        for w in wrappers.values():
+            w.launches = 0
+        t1 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        log(f"{name}: {wall:.1f} s; kernel launches {json.dumps(launched)}")
+        if name == "profile":
+            log(got.pop("summary"))
+            log(f"profile: {json.dumps(got)}")
+        elif name != "demo":
+            log(f"{name}: {json.dumps(got)}")
+            fields.update(got)
+        if name == "kernel":
+            check(launched.get("myers_pool", 0) > 0,
+                  "kernel leg: K1 did not launch")
+        if name == "device":
+            check(launched.get("affine_tb", 0)
+                  + launched.get("affine_tb_ckpt", 0) > 0,
+                  "device leg: neither K5 nor K6 launched")
+    bad = failed_flags(fields)
+    log(f"bench legs: {json.dumps(fields)}")
+    check(not bad, f"bench parity flags not true: {bad}")
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    return fields
+
+
 def phase_profile(tmp: str) -> None:
     """Cell hifi-tr-1.5k three times untraced, then once under
     torch.profiler: wall, device busy time (the union of kernel and copy
@@ -3148,6 +3178,8 @@ def main() -> int:
             launches.update(step_launches)
             timings.update(step_timings)
             done("phase 10")
+            phase_benches(tmp)
+            done("phase 11")
         finally:
             if oracle.poll() is None:
                 oracle.kill()

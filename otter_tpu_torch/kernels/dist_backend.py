@@ -3,11 +3,13 @@
 Counterpart of ``DeviceDistBackend`` in ``otter_tpu/kernels/dist_backend.py``:
 it holds the engine that the batched pipeline calls (``.engine``). A device
 that is not there raises; nothing degrades to another backend.
+``NativeDistBackend`` holds the host engine of the JAX package's
+``DeviceDistBackend("cpu")`` (``mode="native"``).
 """
 
 from __future__ import annotations
 
-from .edit_engine import EditDistanceEngine, MeshEngine
+from .edit_engine import EditDistanceEngine, MeshEngine, NativeEngine
 
 
 class TorchDistBackend:
@@ -24,3 +26,13 @@ class TorchDistBackend:
             mesh = make_mesh()
         self.engine = (MeshEngine(mesh) if mesh is not None
                        else EditDistanceEngine(device))
+
+
+class NativeDistBackend:
+    """Exact distances on the host (``edit_engine.NativeEngine``: threaded
+    native C++ distances, the host ends-free DP, the native affine ladder):
+    ``assemble(..., dist_backend=NativeDistBackend())`` is the JAX
+    package's native-CPU engine, the refscale bench leg's baseline."""
+
+    def __init__(self):
+        self.engine = NativeEngine()

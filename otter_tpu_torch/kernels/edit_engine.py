@@ -655,3 +655,61 @@ class MeshEngine:
             self.jobs_host -= resolved
             best.append(got)
         return np.concatenate(best)
+
+
+class NativeEngine:
+    """The engine's surface on the host, the counterpart of the JAX
+    package's ``EditDistanceEngine(mode="native")`` (its ``--device cpu``
+    engine): threaded native C++ edit distances
+    (``native.py::edit_distance_batch``) and the host ends-free DP
+    (``ops/align_batch.py::edit_ends_free_batch``). It has no ``device``,
+    so the consensus takes the native affine ladder. Exact on every pair,
+    it launches no kernel: the baseline and the oracle of the card's
+    engine on cells too large for the host mode's numpy DP. ``cells``
+    counts the native library's band cells."""
+
+    mode = "native"
+    device = None
+
+    def __init__(self):
+        import os
+
+        self.threads = min(32, os.cpu_count() or 1)
+        self.cells = 0
+
+    def distances_async_indexed(self, seqs, xi, yi):
+        return [(seqs[a], seqs[b]) for a, b in zip(xi, yi)]
+
+    def distances_async(self, pairs):
+        return list(pairs)
+
+    def distances_collect(self, pairs) -> np.ndarray:
+        from ..native import edit_distance_batch
+
+        out = np.zeros(len(pairs), dtype=np.int64)
+        todo = []
+        for i, (x, y) in enumerate(pairs):
+            if not x or not y:
+                out[i] = max(len(x), len(y))
+            elif x != y:
+                todo.append(i)
+        if todo:
+            d, cells = edit_distance_batch([pairs[i] for i in todo],
+                                           self.threads)
+            out[todo] = d
+            self.cells += cells
+        return out
+
+    def distances(self, pairs) -> np.ndarray:
+        return self.distances_collect(pairs)
+
+    def ends_free_async(self, jobs):
+        return jobs
+
+    def ends_free_collect(self, jobs) -> np.ndarray:
+        from ..ops.align_batch import edit_ends_free_batch
+
+        return edit_ends_free_batch(jobs)
+
+    def ends_free(self, jobs) -> np.ndarray:
+        return self.ends_free_collect(jobs)

@@ -15,13 +15,17 @@ cohort BAM, BED and reference FASTA, byte for byte, and ``region_fixture``
 ``bench_e2e.build_fixture``'s short tandem-repeat regions (the JAX
 package's regions bench leg and multichip dry run). ``poa_shaped_graph``
 gives the edges of a seeded graph shaped like a POA graph.
+``pair_workload`` is ``bench.py::make_workload``'s distance workload, and
+``make_reference`` / ``simulate_region_bam`` / ``make_bam`` /
+``write_fasta`` are the generators of ``tests/fixtures.py`` that the
+demo uses.
 """
 
 from __future__ import annotations
 
 import os
 import random
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -99,7 +103,11 @@ def _project(cig: List[Tuple[int, int]], consumed: int,
 
 
 def read_record(name: str, pos: int, seq: str,
-                cigar: List[Tuple[int, int]]) -> BamRecord:
+                cigar: List[Tuple[int, int]],
+                tags: Sequence[Tuple[str, str, object]] = (("rq", "f", 0.99),)
+                ) -> BamRecord:
+    """A mapped forward read on contig 0 with mapq 60, quality 40 a base
+    and the aux ``tags`` (an rq of 0.99 unless given)."""
     rec = BamRecord()
     rec.name = name
     rec.flag = 0
@@ -109,17 +117,38 @@ def read_record(name: str, pos: int, seq: str,
     rec.cigar = cigar
     rec.seq = seq
     rec.qual = b"\x28" * len(seq)
-    rec.aux = bytes(encode_aux("rq", "f", 0.99))
+    rec.aux = b"".join(bytes(encode_aux(*t)) for t in tags)
     return rec
 
 
-def write_bam(path: str, ref_len: int, records: List[BamRecord]) -> None:
-    """Coordinate-sorted BAM over one contig ``chr1``, and its BAI."""
-    header = f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:{ref_len}\n"
-    with BamWriter(path, header, [("chr1", ref_len)]) as w:
-        for rec in sorted(records, key=lambda r: r.pos):
+def make_bam(path: str, refs: List[Tuple[str, int]],
+             records: List[BamRecord], rg: Optional[str] = None,
+             pg_of: Optional[str] = None, extra_header: str = "") -> None:
+    """Coordinate-sorted BAM of ``records`` over the contigs ``refs``
+    ((name, length)), with an optional @RG and otter @PG line, and its BAI:
+    ``tests/fixtures.py::make_bam``'s bytes."""
+    hdr = ["@HD\tVN:1.6\tSO:coordinate"]
+    hdr += [f"@SQ\tSN:{name}\tLN:{ln}" for name, ln in refs]
+    if rg:
+        hdr.append(f"@RG\tID:{rg}")
+    if pg_of:
+        hdr.append(f"@PG\tID:otter\tOF:{pg_of}")
+    if extra_header:
+        hdr.append(extra_header)
+    with BamWriter(path, "\n".join(hdr) + "\n", refs) as w:
+        for rec in sorted(records, key=lambda r: (r.ref_id, r.pos)):
             w.write(rec)
     index_bam(path)
+
+
+def write_fasta(path: str, entries: List[Tuple[str, str]],
+                width: int = 60) -> None:
+    """(name, sequence) entries as FASTA, ``width`` bases a line."""
+    with open(path, "w") as fh:
+        for name, seq in entries:
+            fh.write(f">{name}\n")
+            for i in range(0, len(seq), width):
+                fh.write(seq[i : i + width] + "\n")
 
 
 def tandem_repeat_loci(tmp: str, n_regions: int, cov: int, err: float,
@@ -171,7 +200,7 @@ def tandem_repeat_loci(tmp: str, n_regions: int, cov: int, err: float,
                         f"o{r}_{len(records)}", start - lf, "".join(out),
                         cig))
     bam = os.path.join(tmp, f"{name}_reads.bam")
-    write_bam(bam, ref_len, records)
+    make_bam(bam, [("chr1", ref_len)], records)
     return bam, bed
 
 
@@ -235,27 +264,18 @@ def cohort_fixture(tmp: str, n_samples: int = 64, n_regions: int = 32,
                     for _ in range(rng.randrange(0, 3)):
                         p = rng.randrange(len(sv))
                         sv[p] = rng.choice("ACGT")
-                    rec = read_record(f"a{r}_{s}_{hap}", start, "".join(sv),
-                                      [(len(sv), BAM_CMATCH)])
-                    rec.aux = b"".join(bytes(encode_aux(*t)) for t in (
-                        ("ta", "Z", region), ("RG", "Z", f"S{s}"),
-                        ("tc", "i", 20), ("ac", "i", 10), ("sc", "i", 8),
-                        ("se", "f", 0.01), ("ic", "i", 1)))
-                    records.append(rec)
+                    records.append(read_record(
+                        f"a{r}_{s}_{hap}", start, "".join(sv),
+                        [(len(sv), BAM_CMATCH)],
+                        (("ta", "Z", region), ("RG", "Z", f"S{s}"),
+                         ("tc", "i", 20), ("ac", "i", 10), ("sc", "i", 8),
+                         ("se", "f", 0.01), ("ic", "i", 1))))
     bam = os.path.join(tmp, "cohort64.bam")
-    header = "\n".join(
-        ["@HD\tVN:1.6\tSO:coordinate", f"@SQ\tSN:chr1\tLN:{ref_len}",
-         "@PG\tID:otter\tOF:1,0"]
-        + [f"@RG\tID:S{s}" for s in range(n_samples)]) + "\n"
-    with BamWriter(bam, header, [("chr1", ref_len)]) as w:
-        for rec in sorted(records, key=lambda x: (x.ref_id, x.pos)):
-            w.write(rec)
-    index_bam(bam)
+    make_bam(bam, [("chr1", ref_len)], records, pg_of="1,0",
+             extra_header="\n".join(f"@RG\tID:S{s}"
+                                     for s in range(n_samples)))
     fa = os.path.join(tmp, "cohort_ref.fa")
-    with open(fa, "w") as fh:
-        fh.write(">chr1\n")
-        for i in range(0, len(ref), 60):
-            fh.write(ref[i : i + 60] + "\n")
+    write_fasta(fa, [("chr1", ref)])
     return bam, bed, fa
 
 
@@ -363,18 +383,150 @@ def region_fixture(tmp: str, n_regions: int = 100, cov: int = 12,
                         else:
                             cig.append((region_len - consumed, BAM_CDEL))
                     noisy_walk(ref[end : end + rf], err, nprng, out, cig)
-                    rec = read_record(f"r{r}_{a_i}_{c}", start - lf,
-                                      "".join(out), cig)
-                    rec.aux = bytes(encode_aux("rq", "f", 0.999))
-                    records.append(rec)
+                    records.append(read_record(
+                        f"r{r}_{a_i}_{c}", start - lf, "".join(out), cig,
+                        (("rq", "f", 0.999),)))
     bam = os.path.join(tmp, "reads.bam")
-    write_bam(bam, ref_len, records)
+    make_bam(bam, [("chr1", ref_len)], records)
     fa = os.path.join(tmp, "ref.fa")
-    with open(fa, "w") as fh:
-        fh.write(">chr1\n")
-        for i in range(0, len(ref), 60):
-            fh.write(ref[i : i + 60] + "\n")
+    write_fasta(fa, [("chr1", ref)])
     return bam, bed, fa
+
+
+def pair_workload(rng: random.Random, n_pairs: int = 2048,
+                  length: int = 1024, group: int = 13):
+    """The kernel bench leg's distance workload, ``bench.py::make_workload``
+    for the same ``rng``: groups of ``group`` related sequences (a random
+    ``length`` bp base, each member mutated at half the group's rate), all
+    vs all within a group, up to ``n_pairs`` pairs; groups alternate 1% and
+    5% error. Members are shared across a group's pairs, as the assemble
+    pipeline shares a read's sequence. Returns (pairs, seqs, xi, yi): pair
+    p is (seqs[xi[p]], seqs[yi[p]])."""
+    nprng = np.random.Generator(np.random.PCG64(rng.randrange(1 << 60)))
+
+    def rand_seq(n: int) -> str:
+        return _NT[nprng.integers(0, 4, n)].tobytes().decode("latin-1")
+
+    def mut(s: str, rate: float) -> str:
+        base = _CODE[np.frombuffer(s.encode("latin-1"), np.uint8)]
+        L = len(base)
+        u = nprng.random(L)
+        cat = np.where(u < rate * 0.4, 1,
+                       np.where(u < rate * 0.7, 2, np.where(u < rate, 3, 0)))
+        n_chars = np.where(cat == 3, 0, np.where(cat == 2, 2, 1))
+        starts = np.zeros(L, dtype=np.int64)
+        np.cumsum(n_chars[:-1], out=starts[1:])
+        outb = np.zeros(int(n_chars.sum()), dtype=np.uint8)
+        keep = cat != 3
+        newb = np.where(cat == 1, (base + nprng.integers(1, 4, L)) % 4, base)
+        outb[starts[keep]] = _NT[newb[keep]]
+        ins = cat == 2
+        if ins.any():
+            outb[starts[ins] + 1] = _NT[nprng.integers(0, 4, int(ins.sum()))]
+        return outb.tobytes().decode("latin-1")
+
+    per_group = group * (group - 1) // 2
+    pairs: List[Tuple[str, str]] = []
+    seqs: List[str] = []
+    xi: List[int] = []
+    yi: List[int] = []
+    gi = 0
+    while len(pairs) < n_pairs:
+        base = rand_seq(length)
+        rate = 0.01 if gi % 2 == 0 else 0.05
+        members = [mut(base, rate * 0.5) for _ in range(group)]
+        m0 = len(seqs)
+        seqs.extend(members)
+        take = min(per_group, n_pairs - len(pairs))
+        ij = [(i, j) for i in range(group) for j in range(i + 1, group)]
+        for i, j in ij[:take]:
+            pairs.append((members[i], members[j]))
+            xi.append(m0 + i)
+            yi.append(m0 + j)
+        gi += 1
+    return pairs, seqs, np.asarray(xi, np.int64), np.asarray(yi, np.int64)
+
+
+def make_reference(rng: random.Random, length: int = 3000,
+                   repeat: str = "CAG", repeat_at: int = 1500,
+                   repeat_units: int = 20) -> str:
+    """A random reference of about ``length`` bp with ``repeat_units``
+    copies of ``repeat`` at ``repeat_at`` (``tests/fixtures.py``'s)."""
+    left = "".join(rng.choice("ACGT") for _ in range(repeat_at))
+    right_len = max(0, length - repeat_at - len(repeat) * repeat_units)
+    right = "".join(rng.choice("ACGT") for _ in range(right_len))
+    return left + repeat * repeat_units + right
+
+
+def simulate_region_bam(path: str, ref_name: str, ref_seq: str,
+                        region: Tuple[int, int], alleles: List[str],
+                        per_allele_cov: int, error_rate: float,
+                        seed: int = 7, flank: int = 400) -> None:
+    """An indexed BAM of ``per_allele_cov`` reads an allele over
+    ``region`` of ``ref_seq``, the region's sequence replaced by the
+    allele: each read walks flank / 2 - flank bp of each flank and the
+    allele with substitutions, insertions and deletions at ``error_rate``
+    (0.4 / 0.3 / 0.3), its CIGAR projected onto the region by a trailing
+    insertion or deletion run (``tests/fixtures.py``'s bytes)."""
+    rng = random.Random(seed)
+    start, end = region
+    region_len = end - start
+    records: List[BamRecord] = []
+    for allele in alleles:
+        for _c in range(per_allele_cov):
+            lf = rng.randint(flank // 2, flank)
+            rf = rng.randint(flank // 2, flank)
+            cigar: List[Tuple[int, int]] = []
+            out: List[str] = []
+
+            def emit(op: int, ln: int) -> None:
+                if cigar and cigar[-1][1] == op:
+                    cigar[-1] = (cigar[-1][0] + ln, op)
+                else:
+                    cigar.append((ln, op))
+
+            def walk(piece: str) -> int:
+                for ch in piece:
+                    if rng.random() < error_rate:
+                        kind = rng.random()
+                        if kind < 0.4:
+                            out.append(rng.choice(
+                                [b for b in "ACGT" if b != ch]))
+                            emit(BAM_CMATCH, 1)
+                        elif kind < 0.7:
+                            out.append(ch)
+                            out.append(rng.choice("ACGT"))
+                            emit(BAM_CMATCH, 1)
+                            emit(BAM_CINS, 1)
+                        else:
+                            emit(BAM_CDEL, 1)
+                    else:
+                        out.append(ch)
+                        emit(BAM_CMATCH, 1)
+                return len(piece)
+
+            walk(ref_seq[start - lf : start])
+            consumed = walk(allele)
+            if consumed > region_len:
+                need = consumed - region_len
+                trimmed: List[Tuple[int, int]] = []
+                for ln, op in reversed(cigar):
+                    if need > 0 and op == BAM_CMATCH:
+                        take = min(ln, need)
+                        need -= take
+                        trimmed.append((take, BAM_CINS))
+                        if take < ln:
+                            trimmed.append((ln - take, op))
+                    else:
+                        trimmed.append((ln, op))
+                cigar[:] = list(reversed(trimmed))
+            elif consumed < region_len:
+                emit(BAM_CDEL, region_len - consumed)
+            walk(ref_seq[end : end + rf])
+            records.append(read_record(
+                f"read_{len(records)}", start - lf, "".join(out), cigar,
+                (("rq", "f", 0.999),)))
+    make_bam(path, [(ref_name, len(ref_seq))], records)
 
 
 def poa_shaped_graph(rs, backbone: int, snps: int, insertions: int,

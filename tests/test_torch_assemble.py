@@ -300,9 +300,26 @@ def test_unknown_device_raises(fixtures, device):
         _run(assemble, fixtures["het"], device, "sam")
 
 
-def test_synth_loci_equal_bench_fixture(tmp_path):
+# tandem_repeat_loci arguments: chip_smoke.py's smoke cell cut small, and
+# the bench's ONT and refscale legs (bench_e2e.py:411, :456-460) at their
+# exact arguments but coverage 4
+SYNTH_LOCI = {
+    "smoke": dict(n_regions=2, err=0.002, cov=10, expansion=40,
+                  region_len=300, seed=77, name="smoke"),
+    "ont": dict(n_regions=16, err=0.06, cov=4, expansion=720,
+                region_len=150, seed=42, flank_lo=300, flank_hi=500,
+                name="ont"),
+    "refscale": dict(n_regions=2, err=0.002, cov=4, expansion=100,
+                     region_len=10000, seed=77, flank_lo=300, flank_hi=500,
+                     name="refscale"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SYNTH_LOCI))
+def test_synth_loci_equal_bench_fixture(tmp_path, case):
     """The port's seeded loci generator writes bench_e2e.build_ont_fixture's
-    BAM, BAI and BED byte for byte when neither option is on (exact)."""
+    BAM, BAI and BED byte for byte when neither option is on (exact), at
+    the bench legs' own arguments."""
     sys.path.insert(0, REPO)
     import bench_e2e
     from otter_tpu_torch.utils.synth import tandem_repeat_loci
@@ -310,12 +327,8 @@ def test_synth_loci_equal_bench_fixture(tmp_path):
     a, b = tmp_path / "a", tmp_path / "b"
     a.mkdir()
     b.mkdir()
-    want = bench_e2e.build_ont_fixture(str(a), n_regions=2, err=0.002,
-                                       cov=10, expansion=40, region_len=300,
-                                       seed=77, name="smoke")
-    got = tandem_repeat_loci(str(b), n_regions=2, cov=10, err=0.002,
-                             expansion=40, region_len=300, seed=77,
-                             name="smoke")
+    want = bench_e2e.build_ont_fixture(str(a), **SYNTH_LOCI[case])
+    got = tandem_repeat_loci(str(b), **SYNTH_LOCI[case])
     for w, g in ((want[0], got[0]), (want[0] + ".bai", got[0] + ".bai"),
                  (want[1], got[1])):
         with open(w, "rb") as fw, open(g, "rb") as fg:
