@@ -56,8 +56,12 @@ exits non-zero:
    process, ``--host-oracle``, started before phase 3).
    Every kernel's launch count is zeroed before the card runs and read
    after them; each must have launched, and K8 in hifi-tr-1.5k and the
-   refscale region. Then those two cells with the device KDE on and off
-   (``OTTER_TPU_MESH_KDE=0``) in turns, their walls and KDE phase seconds;
+   refscale region. Each card run prints its K3 / K4 ladder calls: the
+   rungs each ran and the jobs launched and resolved at each (a job a
+   rung did not resolve skips to the first rung >= min(its banded score,
+   8 k)), and the jobs left to K2. Then those two cells with the device
+   KDE on and off (``OTTER_TPU_MESH_KDE=0``) in turns, their walls and
+   KDE phase seconds;
    then K2 is timed at the shape of its launch in hifi-tr-1.5k (that run's
    ``jobs_k2`` count of jobs);
 6. the other entry points: ``genotype`` on bench_e2e's 64-sample x 32-region
@@ -142,7 +146,13 @@ exits non-zero:
    names them all), then ``bench/profile.py`` on 96 regions and
    ``demo.py``; each with every kernel's launch count zeroed before it
    and printed after it (K1 must launch in the kernel leg, K5 or K6 in the
-   device leg), every ``*_identical`` / ``*_parity`` flag true.
+   device leg), every ``*_identical`` / ``*_parity`` flag true; then
+   each of the two ratios with its live value, its pinned value
+   (``otter_tpu_torch/bench/baselines.json``, ``bench/calibrate.py``) and
+   the value the max / min rule uses: ``vs_baseline`` from the kernel
+   leg's one-core rate, ``refscale_vs_native`` from phase 5's host-engine
+   wall of the same refscale region (measured beside phase 3) over this
+   leg's region.
 
 The line before the last is a JSON object with each kernel's launches in
 phase 5 (K9's in phase 8, K10-K12's in phase 9, K13's and K14's in phase
@@ -1631,6 +1641,8 @@ def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool,
     log(f"{name}: {n_regions} regions, {len(body)} alleles, identical to the "
         f"host engine: {got == want}")
     log(f"{name}: counters {json.dumps(c)}")
+    for i, line in enumerate(ladder_lines(backend.engine.ladders)):
+        log(f"{name}: ladder call {i + 1}: {line}")
     log(f"{name}: {kde_summary(snap)}")
     check(got == want, f"{name}: card output differs from the host engine")
     if rates:
@@ -1643,6 +1655,14 @@ def run_cell(name: str, bam: str, bed: str, n_regions: int, rates: bool,
             f"{host_wall:.3f} s (in the side process, beside phase 3)")
         log(f"{name}: phase seconds {json.dumps(phases, sort_keys=True)}")
     return c, got, wall
+
+
+def ladder_lines(ladders) -> list:
+    """One line per K3 / K4 ladder call of an engine (``ladders``): each
+    rung run as ``k: launched -> resolved``, then the jobs left to K2."""
+    return [f"{kernel} " + ", ".join(f"k={k}: {n} -> {ok}"
+                                     for k, n, ok in rungs)
+            + f"; left to K2: {left}" for kernel, rungs, left in ladders]
 
 
 KDE_PHASES = ("kde_device", "kde_certify", "kde_f64_fallback", "kde_f64")
@@ -3023,12 +3043,43 @@ BENCH_CUTS = ("one timed rep a leg (the bench: kernel 6, regions 3, genotype "
               "byte-identical to NativeDistBackend)")
 
 
-def phase_benches(tmp: str) -> dict:
+def bench_ratios(fields: dict, native_wall: float) -> None:
+    """The bench's two ratios, each with its live value, its pin and the
+    value the rule uses: ``vs_baseline`` by the larger one-core rate,
+    ``refscale_vs_native`` by the smaller native wall of a region
+    (``native_wall``, the host engine's live wall of phase 11's refscale
+    region, measured in phase 5's side process). The kernel leg must have
+    read its pin from the checkout's ``baselines.json``."""
+    from otter_tpu_torch.bench import calibrate, legs
+
+    live = fields["cpu_1core_cells_per_sec"]
+    pin = fields["cpu_1core_pinned"]
+    used = fields["cpu_1core_denominator"]
+    scale = fields["value"] / legs.REFERENCE_THREADS
+    log(f"vs_baseline: live one-core {live} cells/s -> {scale / live:.3f}; "
+        f"pinned {pin} -> "
+        f"{'none' if pin is None else format(scale / pin, '.3f')}; used "
+        f"{used} (the larger) -> {fields['vs_baseline']}")
+    check(pin is not None and used == max(live, pin),
+          "kernel leg: no pinned one-core rate read, or not the larger")
+    per_region = fields["refscale_region_sec_median"]
+    claim, wall_pin = calibrate.native_region_claim(
+        native_wall, fields["refscale_cov"], fields["refscale_allele_bp"])
+    by_pin = ("none" if wall_pin is None
+              else format(wall_pin / per_region, ".2f"))
+    log(f"refscale_vs_native: live native region {native_wall:.2f} s "
+        f"(phase 5's host engine, beside phase 3) -> "
+        f"{native_wall / per_region:.2f}; pinned {wall_pin} s -> {by_pin}; "
+        f"used {claim:.2f} s (the smaller) -> {claim / per_region:.2f}, "
+        f"over a card region of {per_region} s")
+
+
+def phase_benches(tmp: str, native_wall: float) -> dict:
     """The bench's legs (``otter_tpu_torch/bench/legs.py``) in process at
     the JAX bench's sizes with the cuts of ``BENCH_CUTS``, then the
     profiler and the demo; every kernel's launch count set to 0 before each
-    and read after it; every parity flag must be true. Returns the legs'
-    fields."""
+    and read after it; every parity flag must be true; then the two ratios
+    (``bench_ratios``). Returns the legs' fields."""
     import torch
 
     from otter_tpu_torch import demo
@@ -3077,6 +3128,7 @@ def phase_benches(tmp: str) -> dict:
     bad = failed_flags(fields)
     log(f"bench legs: {json.dumps(fields)}")
     check(not bad, f"bench parity flags not true: {bad}")
+    bench_ratios(fields, native_wall)
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     return fields
 
@@ -3178,7 +3230,8 @@ def main() -> int:
             launches.update(step_launches)
             timings.update(step_timings)
             done("phase 10")
-            phase_benches(tmp)
+            # phase 11's refscale leg is phase 5's refscale cell, 1 region
+            phase_benches(tmp, host_oracle_result(oracle, tmp, 3)[1])
             done("phase 11")
         finally:
             if oracle.poll() is None:

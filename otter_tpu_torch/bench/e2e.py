@@ -6,9 +6,10 @@ counts. Its ``"auto"`` device is ``"cuda"`` here (``"cpu"`` runs the
 kernels' plain versions), and ``"host"`` is the port's host mode
 (``device="host"``). The fixtures are ``utils/synth.py``'s, byte for byte
 the JAX bench's. What the JAX file did for a remote TPU is left out: the
-device wait, the CPU fallback, the compile cache and the pinned native
-baseline (``REFSCALE_BASELINE.json``, measured on the TPU machine's host):
-the refscale leg compares with its live native run only.
+device wait, the CPU fallback and the compile cache. The refscale leg's
+native baseline is the smaller of its live run and the port's own pin
+(``calibrate.py``, measured on the card's host; not the JAX package's
+``REFSCALE_BASELINE.json``), as the JAX leg takes it.
 
     python -m otter_tpu_torch.bench.e2e [--regions N]
 
@@ -216,16 +217,11 @@ def bench_ont(tmp: str, device: str = "cuda", reps: int = 3,
             "ont_times": _stats(times)}
 
 
-def bench_refscale(tmp: str, device: str = "cuda", n_regions: int = 2,
-                   cov: int = 200, allele_bp: int = 10000, reps: int = 4,
-                   native: bool = True) -> dict:
-    """The reference-scale leg: the reference's defaults, coverage 200 and
-    10 kb alleles at HiFi-grade error (19,900 pairs of ~10 kb a region).
-    ``n_regions`` regions on ``device``, the median of ``reps`` after a
-    warm run on region 1; with ``native``, region 1 on the native engine
-    (``NativeDistBackend``), its wall and its records byte for byte
-    against the card's."""
-    from ..kernels.dist_backend import NativeDistBackend
+def refscale_fixture(tmp: str, n_regions: int = 2, cov: int = 200,
+                     allele_bp: int = 10000):
+    """The reference-scale loci under ``tmp`` (coverage ``cov``,
+    ``allele_bp`` alleles, 0.2% error, seed 77): (bam, bed, a bed of region
+    1 alone, region 1's bed line)."""
     from ..utils.synth import tandem_repeat_loci
 
     bam, bed = tandem_repeat_loci(tmp, n_regions=n_regions, cov=cov,
@@ -237,6 +233,32 @@ def bench_refscale(tmp: str, device: str = "cuda", n_regions: int = 2,
     bed1 = os.path.join(tmp, "refscale_r1.bed")
     with open(bed1, "w") as fh:
         fh.write(first + "\n")
+    return bam, bed, bed1, first
+
+
+def native_region(device: str, bam: str, bed1: str):
+    """(wall s, SAM text) of ``bed1``'s region on the native engine
+    (``NativeDistBackend``): the refscale leg's baseline, live and
+    pinned."""
+    from ..kernels.dist_backend import NativeDistBackend
+
+    return run(device, bam, bed1, "RS1", dist_backend=NativeDistBackend())
+
+
+def bench_refscale(tmp: str, device: str = "cuda", n_regions: int = 2,
+                   cov: int = 200, allele_bp: int = 10000, reps: int = 4,
+                   native: bool = True) -> dict:
+    """The reference-scale leg: the reference's defaults, coverage 200 and
+    10 kb alleles at HiFi-grade error (19,900 pairs of ~10 kb a region).
+    ``n_regions`` regions on ``device``, the median of ``reps`` after a
+    warm run on region 1; with ``native``, region 1 on the native engine
+    (``native_region``), its wall and its records byte for byte against
+    the card's. ``refscale_vs_native`` divides the smaller of that wall
+    and the pinned one (``calibrate.native_region_claim``) by the card's
+    median region."""
+    from . import calibrate
+
+    bam, bed, bed1, first = refscale_fixture(tmp, n_regions, cov, allele_bp)
     run(device, bam, bed1, "RS1")  # warm
     times, out_card = [], ""
     for _ in range(reps):
@@ -248,15 +270,17 @@ def bench_refscale(tmp: str, device: str = "cuda", n_regions: int = 2,
            "refscale_cov": cov, "refscale_allele_bp": allele_bp,
            "refscale_times": _stats(times)}
     if native:
-        dt_nat, out_nat = run(device, bam, bed1, "RS1",
-                              dist_backend=NativeDistBackend())
+        dt_nat, out_nat = native_region(device, bam, bed1)
+        claim, pin = calibrate.native_region_claim(dt_nat, cov, allele_bp)
         chrom, start, end = first.split("\t")[:3]
         prefix = f"{chrom}:{start}-{end}_"
         r1 = [l for l in out_card.splitlines()
               if l.startswith("@") or l.split("\t")[0].startswith(prefix)]
         out.update({
             "refscale_native_region_sec": round(dt_nat, 2),
-            "refscale_vs_native": round(dt_nat / (med / n_regions), 2),
+            "refscale_native_region_sec_pinned": (
+                None if pin is None else round(pin, 2)),
+            "refscale_vs_native": round(claim / (med / n_regions), 2),
             "refscale_region1_identical": r1 == out_nat.splitlines()})
     return out
 

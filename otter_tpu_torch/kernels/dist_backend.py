@@ -9,6 +9,11 @@ that is not there raises; nothing degrades to another backend.
 
 from __future__ import annotations
 
+from typing import List
+
+from ..ops.consensus import get_dist_anreads
+from ..ops.distmat import DistMatrix
+from ..seqs.model import AnRead
 from .edit_engine import EditDistanceEngine, MeshEngine, NativeEngine
 
 
@@ -26,6 +31,34 @@ class TorchDistBackend:
             mesh = make_mesh()
         self.engine = (MeshEngine(mesh) if mesh is not None
                        else EditDistanceEngine(device))
+
+    def fill_matrix(self, ignore_haps: bool, reads: List[AnRead],
+                    indeces: List[int], distmatrix: DistMatrix) -> None:
+        """``ops.consensus.fill_dist_matrix`` for the reads ``indeces``,
+        batched: without ``ignore_haps`` the haplotag shortcut's host loop;
+        with it one engine call for every pair, each exact distance
+        divided on the host in float64 by the longer side."""
+        n = len(indeces)
+        if not ignore_haps:
+            for i in range(n):
+                for j in range(i + 1, n):
+                    distmatrix.set_dist(i, j, get_dist_anreads(
+                        False, reads[indeces[i]], reads[indeces[j]]))
+            return
+        coords = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        if not coords:
+            return
+        pairs = [(reads[indeces[i]].seq, reads[indeces[j]].seq)
+                 for i, j in coords]
+        dists = self.engine.distances(pairs)
+        for (i, j), d, (x, y) in zip(coords, dists, pairs):
+            distmatrix.set_dist(i, j, d / float(max(len(x), len(y))))
+
+    def pair_dist_fn(self, reads: List[AnRead]):
+        """The per-pair distance of the reassignment's host fallback
+        (``fill_dist_matrix``'s ``pair_dist_fn``): ``get_dist_anreads``
+        with the haplotags ignored; the batched matrix is ``fill_matrix``."""
+        return lambda a, b: get_dist_anreads(True, a, b)
 
 
 class NativeDistBackend:

@@ -12,7 +12,9 @@ the TPU:
   (``myers_pallas``), one launch per n_words bucket {4, 8, 16, 32, 64};
 * ACGT pairs, shorter side > 2048, longer side <= 32 kb -> the K3 ladder
   (``myers_banded``) over bands k whose window stays under a quarter of
-  the matrix, then K2 (``myers_striped``, full matrix) for the rest;
+  the matrix, then K2 (``myers_striped``, full matrix) for the rest; a
+  pair a rung k did not resolve skips to the first rung >= min(its banded
+  score, 8 k) (rung-jumping, also on the K4 ladder);
 * everything else (a non-ACGT char, or a side over 32 kb) -> the K7 ladder
   (``edit_banded``), doubling k until every pair resolves.
 
@@ -180,6 +182,9 @@ class EditDistanceEngine:
         self.jobs_k9 = 0      # resolved by a K9 pass (mesh mode only)
         self.jobs_k5 = 0      # consensus cigars from K5
         self.jobs_affine_host = 0   # consensus cigars K5 left to the ladder
+        # one entry a K3 / K4 ladder call: (kernel, [(k, launched,
+        # resolved) a rung run], left to K2)
+        self.ladders: list = []
 
     def _int32(self, a) -> torch.Tensor:
         return int32_tensor(a, self.device)
@@ -311,12 +316,16 @@ class EditDistanceEngine:
                          out: np.ndarray) -> None:
         """ACGT pairs past K1's 2048: K3 rungs k with n - m <= k <=
         BANDED_FRAC * m and k < n (a band near the full matrix costs as
-        much as K2), one launch per rung; what no rung resolves -> K2."""
+        much as K2) and k >= the pair's ``need`` (``_jump``), one launch
+        per rung; what no rung resolves -> K2."""
         pool, ip, it, m, n = self._pool_inputs(pv, idx)
         nw = striped_n_words(int(m.max()))
         left = np.ones(len(idx), dtype=bool)
+        need = np.zeros(len(idx), dtype=np.int64)
+        rungs = []
         for k in self.K_LONG:
-            now = left & (n - m <= k) & (k <= m * self.BANDED_FRAC) & (k < n)
+            now = (left & (need <= k) & (n - m <= k)
+                   & (k <= m * self.BANDED_FRAC) & (k < n))
             if not now.any():
                 continue
             sel = np.nonzero(now)[0]
@@ -325,10 +334,12 @@ class EditDistanceEngine:
                              int(n[sel].max())).cpu().numpy()
             self.cells += int((n[sel] * np.minimum(m[sel],
                                                    2 * (k + 1))).sum())
-            ok = d <= k
+            ok = self._jump(d, k, sel, need)
             out[idx[sel[ok]]] = d[ok]
             left[sel[ok]] = False
             self.pairs_k3 += int(ok.sum())
+            rungs.append((k, len(sel), int(ok.sum())))
+        self.ladders.append(("K3", rungs, int(left.sum())))
         if left.any():
             sel = np.nonzero(left)[0]
             zero = self._int32(np.zeros(len(sel)))
@@ -338,6 +349,20 @@ class EditDistanceEngine:
             out[idx[sel]] = d
             self.pairs_k2 += len(sel)
             self.cells += int((m[sel] * n[sel]).sum())
+
+    @staticmethod
+    def _jump(d: np.ndarray, k: int, sel: np.ndarray,
+              need: np.ndarray) -> np.ndarray:
+        """Rung-jumping, as the JAX engine's ladders do: rung k's results
+        ``d`` of jobs ``sel``; returns the resolved ones (d <= k, exact).
+        A job it did not resolve has d > k, and its banded score bounds d
+        from above (2^30 where row m left the band), so it next runs at the
+        first rung >= min(score, 8 k): the cap bounds the overshoot when a
+        band's boundary inflates the score far past d. Any later rung, and
+        K2, is exact, so the results do not depend on it."""
+        ok = d <= k
+        need[sel[~ok]] = np.minimum(d[~ok], 8 * k)
+        return ok
 
     def _banded_ladder(self, pv: IndexedPairs, idx: np.ndarray,
                        out: np.ndarray) -> None:
@@ -444,8 +469,9 @@ class EditDistanceEngine:
                                 out: np.ndarray) -> None:
         """One-sided ACGT jobs whose free-less side (the Myers pattern) is
         past 2048: K4 rungs k with klo + 2k <= BANDED_FRAC * m and k < n
-        (klo: the free begin rounded up to a power of two >= 64), one launch
-        per rung; what no rung resolves -> K2."""
+        (klo: the free begin rounded up to a power of two >= 64) and k >=
+        the job's ``need`` (``_jump``), one launch per rung; what no rung
+        resolves -> K2."""
         oriented, tbs, tes = [], [], []
         for i in idx:
             p, t, pb, pe, tb, te = jobs[i]
@@ -464,8 +490,11 @@ class EditDistanceEngine:
         klo = np.asarray([1 << max(6, (max(b, 1) - 1).bit_length())
                           for b in tbs], dtype=np.int64)
         left = np.ones(len(idx), dtype=bool)
+        need = np.zeros(len(idx), dtype=np.int64)
+        rungs = []
         for k in self.K_LONG:
-            now = left & (klo + 2 * k <= m * self.BANDED_FRAC) & (k < n)
+            now = (left & (need <= k)
+                   & (klo + 2 * k <= m * self.BANDED_FRAC) & (k < n))
             if not now.any():
                 continue
             sel = torch.from_numpy(np.nonzero(now)[0]).to(self.device)
@@ -474,10 +503,12 @@ class EditDistanceEngine:
                                 tbt[sel], tet[sel], k, nw,
                                 int(n[seln].max()),
                                 tb_max=max(tbs[i] for i in seln)).cpu().numpy()
-            ok = d <= k
+            ok = self._jump(d, k, seln, need)
             out[idx[seln[ok]]] = d[ok]
             left[seln[ok]] = False
             self.jobs_k4 += int(ok.sum())
+            rungs.append((k, len(seln), int(ok.sum())))
+        self.ladders.append(("K4", rungs, int(left.sum())))
         if left.any():
             seln = np.nonzero(left)[0]
             sel = torch.from_numpy(seln).to(self.device)
