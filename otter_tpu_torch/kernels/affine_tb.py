@@ -28,6 +28,7 @@ import torch
 
 from ..ops.align_np import (GAP_EXT, GAP_OPEN, MISMATCH, _codes,
                             band_validity_cap)
+from ..utils.metrics import to_host
 from .myers_pallas import data_ptr
 
 K_DEV, K_WIDE, K_ONT, K_XWIDE = 63, 127, 255, 511
@@ -446,8 +447,8 @@ def affine_cigars_tb(jobs: List[Tuple[str, str, int, int, int, int]],
                 ops, end = run(
                     *(torch.from_numpy(x).to(device) for x in (a, bpad, mn)),
                     k, t_words)
-                codes_all = _unpack_codes(ops.cpu().numpy(), t_words)
-                end = end.cpu().numpy()
+                codes_all = _unpack_codes(to_host(ops), t_words)
+                end = to_host(end)
                 for bi, idx in enumerate(sub_idx):
                     p, t, pb, pe, tb, te = jobs[idx]
                     m, n = len(p), len(t)

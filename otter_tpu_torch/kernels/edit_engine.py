@@ -30,7 +30,9 @@ runs them in jnp. Every route is exact.
 The ``*_async`` calls launch K1 and the short K2 jobs on the current stream
 and return; the ``*_collect`` calls copy those results back and run the
 ladders, which read each rung's results before launching the next.
-Plain-integer counters record where each pair and job went.
+Plain-integer counters record where each pair and job went; the ladders run
+in ``utils.metrics`` span ``ladder``, and every read of results is
+``metrics.to_host`` (span ``device_wait``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.metrics import phase, to_host
 from .edit_banded import edit_banded, pack_banded
 from .myers_banded import myers_banded, myers_banded_ef
 from .myers_pallas import (int32_tensor, myers_pool, pack_pool,
@@ -136,12 +139,12 @@ def collect_kde(pv: IndexedPairs, pending: list, out: np.ndarray, device,
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)
                                 ).to(device)
 
-    fused = kde_fused_from_pairs(
+    fused = to_host(kde_fused_from_pairs(
         flat, f32(maxlen[members]), int32_tensor(rid[members], device),
         int32_tensor(slot[members], device), int32_tensor(ex_row, device),
         int32_tensor(ex_slot, device), f32(ex_val),
         int32_tensor(nvals, device), f32(bw), f32(xs), n_pad, n_rows,
-        n_max=int(nvals.max())).cpu().numpy()
+        n_max=int(nvals.max())))
     P = len(members)
     out[members] = fused[:P].astype(np.int64)
     m = fused[P : P + n_rows * G].reshape(n_rows, G)
@@ -276,7 +279,7 @@ class EditDistanceEngine:
     def collect_k1(pending: list, out: np.ndarray) -> None:
         """One device-to-host copy of a ``launch_k1`` list into ``out``."""
         if pending:
-            flat = torch.cat([dev for _m, dev in pending]).cpu().numpy()
+            flat = to_host(torch.cat([dev for _m, dev in pending]))
             offset = 0
             for members, _dev in pending:
                 out[members] = flat[offset : offset + len(members)]
@@ -284,11 +287,13 @@ class EditDistanceEngine:
 
     def collect_ladders(self, pv: IndexedPairs, long_idx: np.ndarray,
                         rest: np.ndarray, out: np.ndarray) -> None:
-        """The K3/K2 and K7 ladders of ``long_idx`` and ``rest``."""
-        if len(long_idx):
-            self._long_pair_route(pv, long_idx, out)
-        if len(rest):
-            self._banded_ladder(pv, rest, out)
+        """The K3/K2 and K7 ladders of ``long_idx`` and ``rest``, in span
+        ``ladder`` (opened with none to run)."""
+        with phase("ladder"):
+            if len(long_idx):
+                self._long_pair_route(pv, long_idx, out)
+            if len(rest):
+                self._banded_ladder(pv, rest, out)
 
     def distances_collect(self, handle) -> np.ndarray:
         """Finish a ``distances_async*`` handle: one device-to-host copy of
@@ -329,9 +334,10 @@ class EditDistanceEngine:
             if not now.any():
                 continue
             sel = np.nonzero(now)[0]
-            d = myers_banded(pool, self._int32(ip[sel]), self._int32(it[sel]),
-                             self._int32(n[sel]), self._int32(m[sel]), k, nw,
-                             int(n[sel].max())).cpu().numpy()
+            d = to_host(myers_banded(
+                pool, self._int32(ip[sel]), self._int32(it[sel]),
+                self._int32(n[sel]), self._int32(m[sel]), k, nw,
+                int(n[sel].max())))
             self.cells += int((n[sel] * np.minimum(m[sel],
                                                    2 * (k + 1))).sum())
             ok = self._jump(d, k, sel, need)
@@ -343,9 +349,10 @@ class EditDistanceEngine:
         if left.any():
             sel = np.nonzero(left)[0]
             zero = self._int32(np.zeros(len(sel)))
-            d = myers_striped(pool, self._int32(ip[sel]), self._int32(it[sel]),
-                              self._int32(n[sel]), self._int32(m[sel]), zero,
-                              zero, nw, int(n[sel].max())).cpu().numpy()
+            d = to_host(myers_striped(
+                pool, self._int32(ip[sel]), self._int32(it[sel]),
+                self._int32(n[sel]), self._int32(m[sel]), zero, zero, nw,
+                int(n[sel].max())))
             out[idx[sel]] = d
             self.pairs_k2 += len(sel)
             self.cells += int((m[sel] * n[sel]).sum())
@@ -382,8 +389,8 @@ class EditDistanceEngine:
             for c0 in range(0, len(sel), self.K7_CHUNK):
                 chunk = sel[c0 : c0 + self.K7_CHUNK]
                 a, bpad, mn = pack_banded([pv[int(i)] for i in idx[chunk]], k)
-                d = edit_banded(*(self._int32(x) for x in (a, bpad, mn)),
-                                k).cpu().numpy()
+                d = to_host(edit_banded(
+                    *(self._int32(x) for x in (a, bpad, mn)), k))
                 ok = d <= k
                 out[idx[chunk[ok]]] = d[ok]
                 left[chunk[ok]] = False
@@ -455,8 +462,9 @@ class EditDistanceEngine:
         jobs, out, k2, k2h, k4, host, zero_idx, zh = handle
         if k2h is not None:
             out[k2] = myers_striped_ends_free_collect(k2h)
-        if k4:
-            self._ends_free_banded_route(jobs, np.asarray(k4), out)
+        with phase("ladder"):
+            if k4:
+                self._ends_free_banded_route(jobs, np.asarray(k4), out)
         if zh is not None:
             out[zero_idx] = self.distances_collect(zh)
         if host:
@@ -499,10 +507,10 @@ class EditDistanceEngine:
                 continue
             sel = torch.from_numpy(np.nonzero(now)[0]).to(self.device)
             seln = np.nonzero(now)[0]
-            d = myers_banded_ef(pool, ip[sel], it[sel], nl[sel], ml[sel],
-                                tbt[sel], tet[sel], k, nw,
-                                int(n[seln].max()),
-                                tb_max=max(tbs[i] for i in seln)).cpu().numpy()
+            d = to_host(myers_banded_ef(
+                pool, ip[sel], it[sel], nl[sel], ml[sel], tbt[sel], tet[sel],
+                k, nw, int(n[seln].max()),
+                tb_max=max(tbs[i] for i in seln)))
             ok = self._jump(d, k, seln, need)
             out[idx[seln[ok]]] = d[ok]
             left[seln[ok]] = False
@@ -512,9 +520,9 @@ class EditDistanceEngine:
         if left.any():
             seln = np.nonzero(left)[0]
             sel = torch.from_numpy(seln).to(self.device)
-            d = myers_striped(pool, ip[sel], it[sel], nl[sel], ml[sel],
-                              tbt[sel], tet[sel], nw,
-                              int(n[seln].max())).cpu().numpy()
+            d = to_host(myers_striped(pool, ip[sel], it[sel], nl[sel],
+                                      ml[sel], tbt[sel], tet[sel], nw,
+                                      int(n[seln].max())))
             out[idx[seln]] = d
             self.jobs_k2 += len(seln)
             self.cells += int((m[seln] * n[seln]).sum())
@@ -650,9 +658,10 @@ class MeshEngine:
         for _eng, k2s, k2h, _k4s in shards:
             if k2h is not None:
                 out[k2s] = myers_striped_ends_free_collect(k2h)
-        for eng, _k2s, _k2h, k4s in shards:
-            if k4s:
-                eng._ends_free_banded_route(jobs, np.asarray(k4s), out)
+        with phase("ladder"):
+            for eng, _k2s, _k2h, k4s in shards:
+                if k4s:
+                    eng._ends_free_banded_route(jobs, np.asarray(k4s), out)
         if zh is not None:
             out[zero_idx] = self.distances_collect(zh)
         if host:
@@ -677,7 +686,7 @@ class MeshEngine:
                                  edit_banded_ends_free(ax, bxp, meta, k)))
         best = []
         for eng, part, dev in launched:
-            got = dev.cpu().numpy().astype(np.int64)
+            got = to_host(dev).astype(np.int64)
             reach = np.fromiter(
                 (max(abs(len(jobs[i][1]) - len(jobs[i][0])), *jobs[i][2:6])
                  for i in part), np.int64, len(part))

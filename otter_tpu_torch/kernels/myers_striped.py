@@ -25,6 +25,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.metrics import to_host
 from .myers_pallas import (M32, check_inputs, data_ptr, int32_tensor,
                            match_mask, myers_column, pack_pool,
                            pattern_planes, pool_width, score_delta,
@@ -265,7 +266,7 @@ def myers_striped_ends_free_async(jobs, device: torch.device):
 def myers_striped_ends_free_collect(handle) -> np.ndarray:
     out, live, dev = handle
     if dev is not None:
-        out[live] = dev.cpu().numpy()
+        out[live] = to_host(dev)
     return out
 
 

@@ -28,6 +28,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.metrics import to_host
 from .myers_pallas import data_ptr
 
 # the streamed kernel's limit on nodes a graph (h and min_eid in shared
@@ -240,5 +241,5 @@ def split_by_graph(batch: PoaBatch, h: np.ndarray,
                    min_eid: np.ndarray) -> List[Tuple[np.ndarray,
                                                       np.ndarray]]:
     """Per graph, its nodes' (h, min_eid), by graph-local node id."""
-    meta = batch.meta.cpu().numpy()
+    meta = to_host(batch.meta)
     return [(h[o : o + n], min_eid[o : o + n]) for o, n, *_r in meta]

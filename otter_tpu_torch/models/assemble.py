@@ -104,7 +104,8 @@ def prepare_region(params: OtterOpts, local_bed: BED, bam: BamReader,
     if params.is_debug:
         sys.stderr.write(
             f"({antimestamp()}): [DEBUG] Processing {local_bed.to_sc_string()}\n")
-    anread_block = parse_anreads(params, mod_bed, bam)
+    with metrics.phase("extract"):
+        anread_block = parse_anreads(params, mod_bed, bam)
     if params.is_debug:
         sys.stderr.write(
             f"({antimestamp()}): [DEBUG] Loaded {len(anread_block)} reads\n")
@@ -114,8 +115,10 @@ def prepare_region(params: OtterOpts, local_bed: BED, bam: BamReader,
             f"{local_bed.to_sc_string()} ({len(anread_block)})\n")
         return None
     if faidx is not None:
-        local_realignment(mod_bed.chr, mod_bed.start, mod_bed.end, params.flank,
-                          params.min_sim, faidx, anread_block)
+        with metrics.phase("realign"):
+            local_realignment(mod_bed.chr, mod_bed.start, mod_bed.end,
+                              params.flank, params.min_sim, faidx,
+                              anread_block)
         if params.is_debug:
             sys.stderr.write(
                 f"({antimestamp()}): [DEBUG] Locally realigned "
@@ -250,15 +253,11 @@ def process_region_batch(params: OtterOpts, batch: List[RegionWork],
     _finish_batch(params, staged, dist_backend, out)
 
 
-def _dispatch_batch(params: OtterOpts, batch: List[RegionWork],
-                    dist_backend):
-    """Pool every region's pair workload and launch it asynchronously;
-    returns the staged handle ``_finish_batch`` takes.
-
-    The reassignment workload rides the same launch: its (unassigned i,
-    labeled spanning j) pair set depends only on the valid/invalid read
-    partition, not on the cluster labels, so its End2End pairs join the
-    pooled distance pairs and its ends-free jobs launch here too."""
+def _pair_workload(params: OtterOpts, batch: List[RegionWork]):
+    """The batch's pair workload on the host: (spans, pairs, reassignment
+    infos, ends-free jobs, index of the first reassignment pair). Spans are
+    (work, condensed coordinates or None, index of the region's first
+    pair)."""
     from ..ops.consensus import reassignment_jobs
 
     # unique sequence pool by object identity: a region's pair set shares
@@ -313,13 +312,29 @@ def _dispatch_batch(params: OtterOpts, batch: List[RegionWork],
           else np.zeros(0, dtype=np.int64))
     yi = (np.concatenate(yi_parts) if yi_parts
           else np.zeros(0, dtype=np.int64))
-    all_pairs = IndexedPairs(seq_pool, xi, yi)
+    return (spans, IndexedPairs(seq_pool, xi, yi), reassign_infos, pool_ef,
+            e2e_base)
+
+
+def _dispatch_batch(params: OtterOpts, batch: List[RegionWork],
+                    dist_backend):
+    """Pool every region's pair workload and launch it asynchronously;
+    returns the staged handle ``_finish_batch`` takes.
+
+    The reassignment workload rides the same launch: its (unassigned i,
+    labeled spanning j) pair set depends only on the valid/invalid read
+    partition, not on the cluster labels, so its End2End pairs join the
+    pooled distance pairs and its ends-free jobs launch here too."""
+    with metrics.phase("pair_prep"):
+        (spans, all_pairs, reassign_infos, pool_ef,
+         e2e_base) = _pair_workload(params, batch)
     eng = dist_backend.engine
     with metrics.phase("device_dispatch"):
-        handle = eng.distances_async_indexed(seq_pool, xi, yi) if total \
-            else None
+        handle = (eng.distances_async_indexed(all_pairs.seqs, all_pairs.xi,
+                                              all_pairs.yi)
+                  if len(all_pairs) else None)
         ef_handle = eng.ends_free_async(pool_ef) if pool_ef else None
-    metrics.add("pair_alignments", total + len(pool_ef))
+    metrics.add("pair_alignments", len(all_pairs) + len(pool_ef))
     return spans, all_pairs, handle, reassign_infos, ef_handle, e2e_base
 
 
@@ -543,8 +558,9 @@ def _finish_batch(params: OtterOpts, staged, dist_backend, out: TextIO,
                   _precomputed(reassign_infos[si], dists, ef_d, pair_maxlen))
                  for si, ((work, _c, _s), dm) in enumerate(
                      zip(spans, matrices))])
-        for (work, _c, _s), (clustmsg, alleles) in zip(spans, results):
-            emit_region(params, work, clustmsg, alleles, out)
+        with metrics.phase("emit"):
+            for (work, _c, _s), (clustmsg, alleles) in zip(spans, results):
+                emit_region(params, work, clustmsg, alleles, out)
         return
 
     # cluster every region; the reassignment distances rode the batch's
@@ -576,8 +592,9 @@ def _finish_batch(params: OtterOpts, staged, dist_backend, out: TextIO,
     with metrics.phase("cluster_consensus"), \
             metrics.phase("consensus_batch"):
         consensus_apply_batched(all_tasks, engine=engine)
-    for work, clustmsg, alleles in staged_regions:
-        emit_region(params, work, clustmsg, alleles, out)
+    with metrics.phase("emit"):
+        for work, clustmsg, alleles in staged_regions:
+            emit_region(params, work, clustmsg, alleles, out)
 
 
 def _assemble_batched(params: OtterOpts, bed_regions: List[BED],
@@ -646,7 +663,8 @@ def _make_dist_backend(params: OtterOpts,
     if params.device not in engines:
         raise ValueError(f"an engine's device is one of {engines}, "
                          f"not {params.device!r}")
-    return TorchDistBackend(bind_device(params.device, process_index))
+    with metrics.phase("open"):
+        return TorchDistBackend(bind_device(params.device, process_index))
 
 
 def _finish_pool(params: OtterOpts):
@@ -678,19 +696,19 @@ def assemble_process(params: OtterOpts, bam_path: str, bed_regions: List[BED],
         f"({antimestamp()}): Processing {bam_path} ({params.read_group})\n")
     if dist_backend is None and not host:
         dist_backend = _make_dist_backend(params)
-    bam = BamReader(bam_path, load_index=True)
-    faidx = Faidx(reference) if reference else None
+    with metrics.phase("open"):
+        bam = BamReader(bam_path, load_index=True)
+        faidx = Faidx(reference) if reference else None
     pool = None if host else _finish_pool(params)
     try:
-        with metrics.phase("region_total"):
-            if host:
-                for local_bed in bed_regions:
-                    assemble_region(params, local_bed, bam, faidx,
-                                    reads_only, out)
-                    metrics.add("regions")
-            else:
-                _assemble_batched(params, bed_regions, bam, faidx,
-                                  reads_only, dist_backend, pool, out)
+        if host:
+            for local_bed in bed_regions:
+                assemble_region(params, local_bed, bam, faidx, reads_only,
+                                out)
+                metrics.add("regions")
+        else:
+            _assemble_batched(params, bed_regions, bam, faidx, reads_only,
+                              dist_backend, pool, out)
     finally:
         if pool is not None:
             pool.close()
@@ -800,12 +818,13 @@ def trim_partial_output(path: str) -> set:
 def _write_sam_header(params: OtterOpts, bam_path: str, out: TextIO) -> None:
     """The SAM header: an @SQ line for each of the BAM's references, then
     @RG and @PG."""
-    hdr = BamReader(bam_path, load_index=True)
-    for name, ln in zip(hdr.ref_names, hdr.ref_lens):
-        out.write(f"@SQ\tSN:{name}\tLN:{ln}\n")
-    out.write(f"@RG\tID:{params.read_group}\n")
-    out.write(f"@PG\tID:otter\tOF:{params.offset_l},{params.offset_r}\n")
-    hdr.close()
+    with metrics.phase("open"):
+        hdr = BamReader(bam_path, load_index=True)
+        for name, ln in zip(hdr.ref_names, hdr.ref_lens):
+            out.write(f"@SQ\tSN:{name}\tLN:{ln}\n")
+        out.write(f"@RG\tID:{params.read_group}\n")
+        out.write(f"@PG\tID:otter\tOF:{params.offset_l},{params.offset_r}\n")
+        hdr.close()
 
 
 def assemble(bam_path: str, bed: str, reference: str, reads_only: bool,
@@ -827,38 +846,40 @@ def assemble(bam_path: str, bed: str, reference: str, reads_only: bool,
     if params.device not in DEVICES:
         raise ValueError(f"device must be one of {DEVICES}, "
                          f"not {params.device!r}")
-    if out is None:
-        out = sys.stdout
-    bed_regions = parse_bed_file(bed)
-    if resume_from:
-        done = completed_regions(resume_from)
-        before = len(bed_regions)
-        bed_regions = [b for b in bed_regions
-                       if b.to_sc_string() not in done]
-        sys.stderr.write(
-            f"({antimestamp()}): resume: skipping {before - len(bed_regions)} "
-            f"completed regions\n")
-    if params.device == "host":
-        if not params.is_fa:
-            _write_sam_header(params, bam_path, out)
-        assemble_process(params, bam_path, bed_regions, reference,
-                         reads_only, out, dist_backend=dist_backend)
-        return
-    with process_group() as (pidx, pcount):
-        if pcount > 1:
-            bed_regions = shard_regions(bed_regions, pidx, pcount)
+    with metrics.phase("assemble"):
+        if out is None:
+            out = sys.stdout
+        with metrics.phase("open"):
+            bed_regions = parse_bed_file(bed)
+        if resume_from:
+            done = completed_regions(resume_from)
+            before = len(bed_regions)
+            bed_regions = [b for b in bed_regions
+                           if b.to_sc_string() not in done]
             sys.stderr.write(
-                f"({antimestamp()}): process {pidx}/{pcount} handling "
-                f"{len(bed_regions)} regions\n")
-        if dist_backend is None:
-            dist_backend = _make_dist_backend(params, pidx)
-        gather = gather_enabled(pcount)
-        body_out: TextIO = io.StringIO() if gather else out
-        if not params.is_fa and pidx == 0:
-            _write_sam_header(params, bam_path, body_out)
-        assemble_process(params, bam_path, bed_regions, reference,
-                         reads_only, body_out, dist_backend=dist_backend)
-        if gather:
-            full = gather_text_to_writer(body_out.getvalue(), pidx, pcount)
-            if full is not None:
-                out.write(full)
+                f"({antimestamp()}): resume: skipping "
+                f"{before - len(bed_regions)} completed regions\n")
+        if params.device == "host":
+            if not params.is_fa:
+                _write_sam_header(params, bam_path, out)
+            assemble_process(params, bam_path, bed_regions, reference,
+                             reads_only, out, dist_backend=dist_backend)
+            return
+        with process_group() as (pidx, pcount):
+            if pcount > 1:
+                bed_regions = shard_regions(bed_regions, pidx, pcount)
+                sys.stderr.write(
+                    f"({antimestamp()}): process {pidx}/{pcount} handling "
+                    f"{len(bed_regions)} regions\n")
+            if dist_backend is None:
+                dist_backend = _make_dist_backend(params, pidx)
+            gather = gather_enabled(pcount)
+            body_out: TextIO = io.StringIO() if gather else out
+            if not params.is_fa and pidx == 0:
+                _write_sam_header(params, bam_path, body_out)
+            assemble_process(params, bam_path, bed_regions, reference,
+                             reads_only, body_out, dist_backend=dist_backend)
+            if gather:
+                full = gather_text_to_writer(body_out.getvalue(), pidx, pcount)
+                if full is not None:
+                    out.write(full)

@@ -324,19 +324,23 @@ def consensus_apply_batched(tasks: List["PoaTask"], engine=None) -> None:
         if use_k5:
             from ..kernels.affine_tb import affine_cigars_tb
 
-            cigars, failed = affine_cigars_tb(flat, engine.device, hints)
+            with metrics.phase("affine_tb"):
+                cigars, failed = affine_cigars_tb(flat, engine.device, hints)
         else:
             cigars, failed = [""] * len(flat), list(range(len(flat)))
         if getattr(engine, "device", None) is not None:
             engine.jobs_k5 += len(flat) - len(failed)
             engine.jobs_affine_host += len(failed)
-        if failed:
-            redo = affine_cigars_multi(
-                [flat[i] for i in failed],
-                dist_hints=None if hints is None else [hints[i]
-                                                       for i in failed])
-            for i, cig in zip(failed, redo):
-                cigars[i] = cig
+        # the native band ladder redoes what K5 could not prove (span opened
+        # with none to redo)
+        with metrics.phase("affine_ladder"):
+            if failed:
+                redo = affine_cigars_multi(
+                    [flat[i] for i in failed],
+                    dist_hints=None if hints is None else [hints[i]
+                                                           for i in failed])
+                for i, cig in zip(failed, redo):
+                    cigars[i] = cig
     # device heaviest-path DP (ops/poa_device.py, K12): graphs build on the
     # host, the consensus DP of the whole allele batch runs as one launch a
     # device (the engine's card or mesh; K12's plain version on the CPU).

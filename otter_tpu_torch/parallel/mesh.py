@@ -33,6 +33,7 @@ from ..kernels.edit_banded import edit_banded
 from ..kernels.kde_pairs import kde_pairs, linspace_grid
 from ..kernels.kde_scaled import kde_scaled
 from ..ops.kde import kde_grid
+from ..utils.metrics import to_host
 
 Mesh = Tuple[torch.device, ...]
 
@@ -126,7 +127,7 @@ def pooled_kde_scaled(value_lists, bandwidths, devices,
     for dev, blocks in chunks.items():
         if not blocks:
             continue
-        flat = torch.cat(blocks).cpu().numpy()
+        flat = to_host(torch.cat(blocks))
         for row, i in enumerate(spans[dev]):
             out[i] = (flat[row, :G], flat[row, G:])
     return out
