@@ -35,6 +35,9 @@ FLAG_REVERSE = 16
 FLAG_SECONDARY = 256
 FLAG_SUPPLEMENTARY = 2048
 
+# a record's block_size, ref_id and pos
+_REC_HEAD = struct.Struct("<Iii")
+
 
 @dataclass
 class BamRecord:
@@ -378,16 +381,35 @@ class BamReader:
                 return
             yield rec
 
+    def _walk(self, tid: int, start: int, end: int) -> Iterator[bytes]:
+        """The record streams of the BAI chunks of [start, end) on tid, in
+        file order, a chunk at a time. The walk ends at the first record
+        that cannot overlap the region (``ref_id != tid or pos >= end``),
+        as htslib's iterator does: the BAM is sorted by coordinate and the
+        chunks by offset, so no later record can overlap. A truncated
+        record ends its chunk."""
+        for cbeg, cend in self.index.query(tid, start, end):
+            raw = self._bgzf.read_span(cbeg, cend)
+            off, past = 0, False
+            while off + 12 <= len(raw):
+                bs, ref_id, pos = _REC_HEAD.unpack_from(raw, off)
+                past = ref_id != tid or pos >= end
+                if past or off + 4 + bs > len(raw):
+                    break
+                off += 4 + bs
+            if off:
+                yield raw[:off]
+            if past:
+                return
+
     def fetch_raw(self, chrom: str, start: int, end: int):
-        """(tid, raw record stream) for the BAI chunks overlapping the
-        region, or None when unindexed / unknown chrom (callers fall back to
+        """(tid, raw record stream) of the region's BAI walk (``_walk``), or
+        None when unindexed / unknown chrom (callers fall back to
         fetch()). Record order matches fetch()."""
         tid = self.tid(chrom)
         if tid < 0 or self.index is None:
             return None
-        parts = [self._bgzf.read_span(cbeg, cend)
-                 for cbeg, cend in self.index.query(tid, start, end)]
-        return tid, b"".join(parts)
+        return tid, b"".join(self._walk(tid, start, end))
 
     def fetch(self, chrom: str, start: int, end: int) -> Iterator[BamRecord]:
         """Yield records overlapping [start, end) on chrom (0-based half-open)."""
@@ -398,29 +420,16 @@ class BamReader:
             )
             return
         if self.index is not None:
-            chunks = self.index.query(tid, start, end)
-            for cbeg, cend in chunks:
-                # bulk path: read the whole chunk and decode with the native
-                # feeder when available
-                self._bgzf.seek_virtual(cbeg)
-                raw_parts = []
-                while self._bgzf.tell_virtual() < cend:
-                    hdr4 = self._bgzf.read(4)
-                    if len(hdr4) < 4:
-                        break
-                    bs = struct.unpack("<I", hdr4)[0]
-                    blob = self._bgzf.read(bs)
-                    if len(blob) < bs:
-                        break
-                    raw_parts.append(hdr4 + blob)
-                recs = self._native_records(b"".join(raw_parts),
-                                            region=(tid, start, end))
+            for raw in self._walk(tid, start, end):
+                # decode a chunk with the native feeder when available
+                recs = self._native_records(raw, region=(tid, start, end))
                 if recs is None:
                     recs = []
-                    for part in raw_parts:
-                        rec = _decode_record(part[4:])
-                        if rec.ref_id != tid or rec.pos >= end:
-                            break
+                    off = 0
+                    while off < len(raw):
+                        bs = struct.unpack_from("<I", raw, off)[0]
+                        rec = _decode_record(raw[off + 4 : off + 4 + bs])
+                        off += 4 + bs
                         if rec.end_pos() > start and \
                                 not (rec.flag & FLAG_UNMAP):
                             recs.append(rec)

@@ -13,6 +13,8 @@ import struct
 import zlib
 from typing import Optional
 
+from ..utils import metrics
+
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000"
 )
@@ -45,7 +47,8 @@ class BgzfReader:
     # -- block layer ---------------------------------------------------------
 
     def _read_block_at(self, coffset: int) -> tuple[bytes, int]:
-        """Return (uncompressed data, compressed size) of the block at coffset."""
+        """Return (uncompressed data, compressed size) of the block at coffset.
+        Each inflate (a cache miss) adds one to counter ``bgzf_inflates``."""
         hit = self._cache.get(coffset)
         if hit is not None:
             return hit
@@ -73,6 +76,7 @@ class BgzfReader:
         cdata = self._fh.read(cdata_len)
         self._fh.read(8)  # crc32 + isize
         data = zlib.decompress(cdata, -15)
+        metrics.add("bgzf_inflates")
         self._cache[coffset] = (data, bsize)
         self._cache_order.append(coffset)
         if len(self._cache_order) > self._cache_max:

@@ -12,7 +12,8 @@ its root's time. While a ``torch.profiler`` is active each span is also a
 ``record_function("otter.<name>")`` range, on the clock of the profiler's
 device trace; with none active no range is opened. ``to_host`` is the one
 blocking device-to-host read: span ``device_wait``, counter
-``device_syncs``.
+``device_syncs``. ``io/bgzf.py`` counts each BGZF block it inflates in
+``bgzf_inflates``.
 """
 
 from __future__ import annotations
