@@ -1193,6 +1193,26 @@ def consensus_jobs(rs, n, lo, hi, err):
     return jobs
 
 
+def cigar_buffer(jobs, dev):
+    """A cigar buffer for ``jobs`` as ``affine_cigars_tb`` gives K5 / K6
+    one: a row of ``cigar_stride`` bytes a member."""
+    import torch
+
+    from otter_tpu_torch.kernels import affine_tb as K
+
+    return torch.empty((len(jobs), K.cigar_stride(jobs)), dtype=torch.uint8,
+                       device=dev)
+
+
+def same_cigars(cig, cig_p, mn) -> bool:
+    """Every member's cigar read from two launches' cigar bytes is equal."""
+    from otter_tpu_torch.kernels import affine_tb as K
+
+    every = np.arange(len(mn))
+    return K.read_cigars(cig.cpu().numpy(), mn, every) == \
+        K.read_cigars(cig_p.cpu().numpy(), mn, every)
+
+
 def kernel_k5(dev, rs) -> dict:
     import torch
 
@@ -1204,12 +1224,14 @@ def kernel_k5(dev, rs) -> dict:
     err, same_ops = 0, True
     for k, rows in ((63, 2048), (255, 2048)):
         tw = K5._t_words(rows, k)
-        a = [torch.from_numpy(x).to(dev)
-             for x in K5.pack_affine_jobs(jobs, rows, k)]
-        ops, end = K5.affine_tb(*a, k, tw)
-        ops_p, end_p = K5.affine_tb_torch(*a, k, tw)
+        packed = K5.pack_affine_jobs(jobs, rows, k)
+        a = [torch.from_numpy(x).to(dev) for x in packed]
+        cig, cig_p = cigar_buffer(jobs, dev), cigar_buffer(jobs, dev)
+        ops, end = K5.affine_tb(*a, k, tw, cig)
+        ops_p, end_p = K5.affine_tb_torch(*a, k, tw, cig_p)
         err = max(err, int((end - end_p).abs().max()))
-        same_ops &= bool(torch.equal(ops, ops_p))
+        same_ops &= bool(torch.equal(ops, ops_p)) and \
+            same_cigars(cig, cig_p, packed[2])
     cigs, failed = K5.affine_cigars_tb(jobs, dev)
     want = affine_cigars_multi(jobs)
     walked = sorted(set(range(len(jobs))) - set(failed))
@@ -1219,20 +1241,26 @@ def kernel_k5(dev, rs) -> dict:
     check(err == 0 and same_ops and oracle and len(walked) > len(jobs) // 2,
           "K5 disagrees with its plain version or the native cigar ladder")
 
-    # timing: 2,048 consensus members of 1.5-1.8 kb alleles at 0.2% error
+    # timing: 2,048 consensus members of 1.5-1.8 kb alleles at 0.2% error,
+    # with the cigar bytes the main path has the kernel write
     tjobs = consensus_jobs(rs, 2048, 1500, 1800, 0.002)
     tw = K5._t_words(2048, 63)
-    a = [torch.from_numpy(x).to(dev)
-         for x in K5.pack_affine_jobs(tjobs, 2048, 63)]
+    packed = K5.pack_affine_jobs(tjobs, 2048, 63)
+    a = [torch.from_numpy(x).to(dev) for x in packed]
+    cig, cig_p = cigar_buffer(tjobs, dev), cigar_buffer(tjobs, dev)
     cells = float(sum(len(j[0]) for j in tjobs) * 128)
-    ms = time_ms(lambda: K5.affine_tb(*a, 63, tw), 3)
-    plain_ms, (o2, e2) = time_once(lambda: K5.affine_tb_torch(*a, 63, tw))
-    o1, e1 = K5.affine_tb(*a, 63, tw)
-    check(bool(torch.equal(o1, o2) and torch.equal(e1, e2)),
+    ms = time_ms(lambda: K5.affine_tb(*a, 63, tw, cig), 3)
+    plain_ms, (o2, e2) = time_once(
+        lambda: K5.affine_tb_torch(*a, 63, tw, cig_p))
+    o1, e1 = K5.affine_tb(*a, 63, tw, cig)
+    check(bool(torch.equal(o1, o2) and torch.equal(e1, e2))
+          and same_cigars(cig, cig_p, packed[2]),
           "K5 disagrees with its plain version on the timing set")
+    log(f"K5 timing set: {cig.shape[1]} cigar bytes a member written back "
+        f"(a row), {nbytes(o1) // len(tjobs)} bytes of walk codes")
     return report("affine_tb", "K5 affine_tb (k 63, 255; band cells)",
                   len(jobs), cells, err == 0 and same_ops, oracle, ms,
-                  plain_ms, err, nbytes(*a, o1, e1))
+                  plain_ms, err, nbytes(*a, o1, e1, cig))
 
 
 def kernel_k6(dev, rs) -> dict:
@@ -1245,12 +1273,14 @@ def kernel_k6(dev, rs) -> dict:
     err, same_ops = 0, True
     for k, rows in ((63, 4096), (127, 4096)):
         tw = K6._t_words(rows, k)
-        a = [torch.from_numpy(x).to(dev)
-             for x in K6.pack_affine_jobs(jobs, rows, k)]
-        ops, end = K6.affine_tb_ckpt(*a, k, tw)
-        ops_p, end_p = K6.affine_tb_torch(*a, k, tw)
+        packed = K6.pack_affine_jobs(jobs, rows, k)
+        a = [torch.from_numpy(x).to(dev) for x in packed]
+        cig, cig_p = cigar_buffer(jobs, dev), cigar_buffer(jobs, dev)
+        ops, end = K6.affine_tb_ckpt(*a, k, tw, cig)
+        ops_p, end_p = K6.affine_tb_torch(*a, k, tw, cig_p)
         err = max(err, int((end - end_p).abs().max()))
-        same_ops &= bool(torch.equal(ops, ops_p))
+        same_ops &= bool(torch.equal(ops, ops_p)) and \
+            same_cigars(cig, cig_p, packed[2])
     before = K6.affine_tb_ckpt_cuda.launches
     cigs, failed = K6.affine_cigars_tb(jobs, dev)
     check(K6.affine_tb_ckpt_cuda.launches > before,
@@ -1261,34 +1291,42 @@ def kernel_k6(dev, rs) -> dict:
     check(err == 0 and same_ops and oracle and len(walked) > len(jobs) // 2,
           "K6 disagrees with its plain version or the native cigar ladder")
 
-    # timing: 512 members of 3.5-4 kb alleles at 0.2% error, k = 127
+    # timing: 512 members of 3.5-4 kb alleles at 0.2% error, k = 127, with
+    # the cigar bytes the main path has the kernel write
     tjobs = consensus_jobs(rs, 512, 3500, 4000, 0.002)
     tw = K6._t_words(4096, 127)
-    a = [torch.from_numpy(x).to(dev)
-         for x in K6.pack_affine_jobs(tjobs, 4096, 127)]
+    packed = K6.pack_affine_jobs(tjobs, 4096, 127)
+    a = [torch.from_numpy(x).to(dev) for x in packed]
+    cig, cig_p = cigar_buffer(tjobs, dev), cigar_buffer(tjobs, dev)
     cells = float(sum(len(j[0]) for j in tjobs) * 256)
-    ms = time_ms(lambda: K6.affine_tb_ckpt(*a, 127, tw), 3)
-    plain_ms, (o2, e2) = time_once(lambda: K6.affine_tb_torch(*a, 127, tw))
-    o1, e1 = K6.affine_tb_ckpt(*a, 127, tw)
-    check(bool(torch.equal(o1, o2) and torch.equal(e1, e2)),
+    ms = time_ms(lambda: K6.affine_tb_ckpt(*a, 127, tw, cig), 3)
+    plain_ms, (o2, e2) = time_once(
+        lambda: K6.affine_tb_torch(*a, 127, tw, cig_p))
+    o1, e1 = K6.affine_tb_ckpt(*a, 127, tw, cig)
+    check(bool(torch.equal(o1, o2) and torch.equal(e1, e2))
+          and same_cigars(cig, cig_p, packed[2]),
           "K6 disagrees with its plain version on the timing set")
+    log(f"K6 timing set: {cig.shape[1]} cigar bytes a member written back "
+        f"(a row), {nbytes(o1) // len(tjobs)} bytes of walk codes")
     # K5 on the same members: the two kernels at the K5 / K6 boundary
     # (4096 rows at k = 127; CKPT_CELLS sends it to K6)
-    k5_ms = time_ms(lambda: K6.affine_tb(*a, 127, tw), 3)
-    o5, e5 = K6.affine_tb(*a, 127, tw)
-    check(bool(torch.equal(o5, o2) and torch.equal(e5, e2)),
+    cig5 = cigar_buffer(tjobs, dev)
+    k5_ms = time_ms(lambda: K6.affine_tb(*a, 127, tw, cig5), 3)
+    o5, e5 = K6.affine_tb(*a, 127, tw, cig5)
+    check(bool(torch.equal(o5, o2) and torch.equal(e5, e2))
+          and same_cigars(cig5, cig_p, packed[2]),
           "K5 disagrees with its plain version on the K6 timing set")
     log(f"K5 on the K6 timing set (4096 rows, k 127): {k5_ms:.3f} ms "
         f"({cells / k5_ms / 1e6:.2f} Gcells/s), K6 {ms:.3f} ms")
     return report("affine_tb_ckpt",
                   "K6 affine_tb_ckpt (k 63, 127; band cells)", len(jobs),
                   cells, err == 0 and same_ops, oracle, ms, plain_ms, err,
-                  nbytes(*a, o1, e1))
+                  nbytes(*a, o1, e1, cig))
 
 
 def affine_sweep(dev) -> None:
     """K5 and K6 at every band they have an instance for, exact against
-    the plain version: members of 30 bp to 2 kb in one launch, unrelated
+    the plain version (walks, end cells and cigar bytes): members of 30 bp to 2 kb in one launch, unrelated
     members (not walked), pattern-end-free members, members with a long gap,
     and a launch of one member; with each kernel's band Gcells/s."""
     import torch
@@ -1316,20 +1354,22 @@ def affine_sweep(dev) -> None:
         for name, sel in (("all", jobs), ("one member", jobs[:1])):
             rows = 2048
             tw = K._t_words(rows, k)
-            a = [torch.from_numpy(x).to(dev)
-                 for x in K.pack_affine_jobs(sel, rows, k)]
-            ops_p, end_p = K.affine_tb_torch(*a, k, tw)
+            packed = K.pack_affine_jobs(sel, rows, k)
+            a = [torch.from_numpy(x).to(dev) for x in packed]
+            cig, cig_p = cigar_buffer(sel, dev), cigar_buffer(sel, dev)
+            ops_p, end_p = K.affine_tb_torch(*a, k, tw, cig_p)
             same = True
             for fn in (K.affine_tb, K.affine_tb_ckpt):
-                ops, end = fn(*a, k, tw)
+                ops, end = fn(*a, k, tw, cig)
                 same &= bool(torch.equal(ops, ops_p)
-                             and torch.equal(end, end_p))
+                             and torch.equal(end, end_p)) \
+                    and same_cigars(cig, cig_p, packed[2])
             check(same, f"K5 / K6 disagree with the plain version at k {k} "
                   f"({name})")
             if name == "all":
                 walked = int(end_p[:, 3].sum())
-                ms5 = time_ms(lambda: K.affine_tb(*a, k, tw), 2)
-                ms6 = time_ms(lambda: K.affine_tb_ckpt(*a, k, tw), 2)
+                ms5 = time_ms(lambda: K.affine_tb(*a, k, tw, cig), 2)
+                ms6 = time_ms(lambda: K.affine_tb_ckpt(*a, k, tw, cig), 2)
                 log(f"K5 / K6 sweep k {k}: {len(sel)} members ({walked} "
                     f"walked), both == plain (max |diff| 0); K5 {ms5:.3f} ms "
                     f"({cells / ms5 / 1e6:.2f} band Gcells/s), K6 "

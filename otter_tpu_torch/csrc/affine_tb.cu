@@ -28,7 +28,10 @@
 // is not walked. The walk emits 2-bit op codes (1 diag, 2 ins, 3 del) in
 // walk order, 16 per int32; end (B, 4) = (score, i, j, walked to (0, 0)).
 // The walk's decisions and its step budget (16 t_words) are the TPU
-// kernel's, so the cigars are the same.
+// kernel's, so the cigars are the same. The walk also writes each
+// member's cigar into cig as finished bytes (struct Cigar):
+// 'M' / 'X' resolved against the pattern and text, 'I', 'D', and the free
+// ends' tails, so the host takes a slice of a row and decodes nothing.
 //
 // Design: one warp per member. W = 32 L with L = 4, 8, 16, 32 for k = 63,
 // 127, 255, 511 (a template parameter), and thread t keeps lanes
@@ -55,6 +58,8 @@
 // uniform; lane 0 stores the op words. In K5 the warp first stages the 32
 // rows the cursor is about to enter into shared memory (16 L bytes a row),
 // so the walk reads shared memory, not a chain of dependent global loads.
+// The cigar bytes leave the walk 32 ops at a time (struct Cigar), so no
+// step of the walk waits on a load of the sequences.
 //
 // What bounds it: INT32 issue. A cell costs about 30 integer operations
 // (two passes over the thread's lanes: the row update, then E, H and the
@@ -405,8 +410,69 @@ __device__ __forceinline__ int code_at(const uint8_t* row, int wc) {
   return (row[wc >> 1] >> (4 * (wc & 1))) & 15;
 }
 
+// A member's cigar as finished bytes in its row of cig (stride bytes):
+// bytes [0, 4) hold the int32 offset of the cigar's first byte; the walk's
+// n_ops ops fill [top - n_ops, top), top = 4 + ei + ej, in forward order
+// ('M' or 'X' as the pattern and text chars of a diagonal step are equal or
+// not, 'I', 'D'); the free ends' 'D' * (m - ei) and 'I' * (n - ej) follow,
+// up to 4 + m + n. A row shorter than 4 + m + n bytes gets offset 0 and no
+// other byte. The walk hands over its ops 32 at a time: lane r keeps the
+// r-th op of the batch and the cell the op left, and the warp resolves and
+// stores the batch's bytes together.
+struct Cigar {
+  uint8_t* row;        // null: a row too short
+  const int8_t* arow;  // pattern chars
+  const int8_t* trow;  // text chars (bpad's row from lane k + 1)
+  int top;
+  int op = 0, ci = 0, cj = 0;  // this lane's op of the batch and its cell
+
+  __device__ Cigar(uint8_t* cig, int stride, int b, const int8_t* arow_,
+                   const int8_t* trow_, const Member& jb, int ei, int ej,
+                   int lane)
+      : row(nullptr), arow(arow_), trow(trow_), top(4 + ei + ej) {
+    uint8_t* r = cig + static_cast<size_t>(b) * stride;
+    if (4 + jb.m + jb.n <= stride) {
+      row = r;
+    } else if (lane == 0) {
+      *reinterpret_cast<int32_t*>(r) = 0;
+    }
+  }
+
+  // Ops first .. first + count - 1 of the walk, one a lane.
+  __device__ void put(int first, int count, int lane) const {
+    if (lane >= count) return;
+    const uint8_t c = op == kOpIns   ? 'I'
+                      : op == kOpDel ? 'D'
+                      : arow[ci - 1] == trow[cj - 1] ? 'M'
+                                                     : 'X';
+    row[top - 1 - first - lane] = c;
+  }
+
+  // Op r of the walk, which left cell (i, j).
+  __device__ void take(int r, int o, int i, int j, int lane) {
+    if (row == nullptr) return;
+    if ((r & 31) == lane) {
+      op = o;
+      ci = i;
+      cj = j;
+    }
+    if ((r & 31) == 31) put(r - 31, 32, lane);
+  }
+
+  // The last, partly filled batch, the free ends' tails and the offset.
+  __device__ void finish(int n_ops, const Member& jb, int ei, int ej,
+                         int lane) const {
+    if (row == nullptr) return;
+    put(n_ops & ~31, n_ops & 31, lane);
+    const int dels = jb.m - ei;
+    const int tail = dels + jb.n - ej;
+    for (int p = lane; p < tail; p += 32) row[top + p] = p < dels ? 'D' : 'I';
+    if (lane == 0) *reinterpret_cast<int32_t*>(row) = top - n_ops;
+  }
+};
+
 // A member's walk, run alike by all 32 lanes; lane 0 stores the op words
-// (16 codes each, in walk order).
+// (16 codes each, in walk order), and every op goes to the cigar bytes.
 struct Walk {
   int ci, cj, state, n_ops, t;
   uint32_t word;
@@ -418,10 +484,12 @@ struct Walk {
     return t < t_max && (ci != 0 || cj != 0);
   }
 
-  __device__ void step(int code, int32_t* orow, int lane) {
+  __device__ void step(int code, int32_t* orow, int lane, Cigar& cg) {
+    const int i0 = ci, j0 = cj;
     const int op = walk_step(ci, cj, state, code);
     ++t;
     if (op) {
+      cg.take(n_ops, op, i0, j0, lane);
       word |= static_cast<uint32_t>(op) << (2 * (n_ops & 15));
       if ((++n_ops & 15) == 0) {
         if (lane == 0) orow[(n_ops >> 4) - 1] = static_cast<int32_t>(word);
@@ -458,7 +526,8 @@ affine_tb_kernel(const int8_t* __restrict__ a, int La,
                  const int8_t* __restrict__ bpad, int Lb,
                  const int32_t* __restrict__ mn, int t_words,
                  int32_t* __restrict__ ops, int32_t* __restrict__ end,
-                 int n_jobs, uint8_t* __restrict__ bits) {
+                 int n_jobs, uint8_t* __restrict__ bits,
+                 uint8_t* __restrict__ cig, int cig_stride) {
   constexpr int W = 32 * L;
   constexpr int kRow = W / 2;  // bytes of codes per row
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -469,11 +538,12 @@ affine_tb_kernel(const int8_t* __restrict__ a, int La,
   const int k1 = W / 2;
   const Member jb = load_member(mn, b, La);
   uint8_t* mbits = bits + static_cast<size_t>(b) * La * kRow;
+  const int8_t* arow = a + static_cast<size_t>(b) * La;
+  const int8_t* brow = bpad + static_cast<size_t>(b) * Lb;
   int H[L], F[L];
   init_rows<L>(H, F, jb, k1, lane);
   int colv = kInf, coli = 0;
-  run_rows<L>(1, jb.m, a + static_cast<size_t>(b) * La, La,
-              bpad + static_cast<size_t>(b) * Lb, Lb, jb, k1, lane, H, F,
+  run_rows<L>(1, jb.m, arow, La, brow, Lb, jb, k1, lane, H, F,
               [&](int i, const int (&Hr)[L], const uint32_t(&nib)[(L + 7) / 8]) {
                 store_codes<L>(mbits + static_cast<size_t>(i - 1) * kRow +
                                    lane * (L / 2),
@@ -487,6 +557,7 @@ affine_tb_kernel(const int8_t* __restrict__ a, int La,
   int32_t* orow = ops + static_cast<size_t>(b) * t_words;
   const int t_max = 16 * t_words;
   Walk wk(ei, ej);
+  Cigar cg(cig, cig_stride, b, arow, brow + k1, jb, ei, ej, lane);
   int lo = 1, hi = 0;  // rows (from 1) held in stage
   while (wk.active(t_max)) {
     const int wc = lane_of(wk.ci, wk.cj, W, k1);
@@ -506,9 +577,10 @@ affine_tb_kernel(const int8_t* __restrict__ a, int La,
       }
       code = code_at(stage + (wk.ci - lo) * kRow, wc);
     }
-    wk.step(code, orow, lane);
+    wk.step(code, orow, lane, cg);
   }
   wk.finish(orow, t_words, lane);
+  cg.finish(wk.n_ops, jb, ei, ej, lane);
   if (lane == 0) {
     store_end(end, b, score, ei, ej, wk.ci == 0 && wk.cj == 0, jb);
   }
@@ -561,7 +633,8 @@ affine_tb_ckpt_kernel(const int8_t* __restrict__ a, int La,
                       const int8_t* __restrict__ bpad, int Lb,
                       const int32_t* __restrict__ mn, int t_words,
                       int32_t* __restrict__ ops, int32_t* __restrict__ end,
-                      int n_jobs, int32_t* __restrict__ ckpt) {
+                      int n_jobs, int32_t* __restrict__ ckpt,
+                      uint8_t* __restrict__ cig, int cig_stride) {
   constexpr int W = 32 * L;
   constexpr int kRow = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -593,6 +666,7 @@ affine_tb_ckpt_kernel(const int8_t* __restrict__ a, int La,
   int32_t* orow = ops + static_cast<size_t>(b) * t_words;
   const int t_max = 16 * t_words;
   Walk wk(ei, ej);
+  Cigar cg(cig, cig_stride, b, arow, brow + k1, jb, ei, ej, lane);
   for (int blk = wk.ci >= 1 ? (wk.ci - 1) / kBlock : -1;
        blk >= 0 && wk.active(t_max); --blk) {
     load_ckpt<L>(mck + static_cast<size_t>(blk) * 2 * W, H, F, lane);
@@ -612,10 +686,11 @@ affine_tb_ckpt_kernel(const int8_t* __restrict__ a, int La,
            (wk.ci == 0 || (wk.ci - 1) / kBlock == blk)) {
       const int wc = lane_of(wk.ci, wk.cj, W, k1);
       wk.step(wc < 0 ? 0 : code_at(smem_raw + (wk.ci - first) * kRow, wc),
-              orow, lane);
+              orow, lane, cg);
     }
   }
   wk.finish(orow, t_words, lane);
+  cg.finish(wk.n_ops, jb, ei, ej, lane);
   if (lane == 0) {
     store_end(end, b, score, ei, ej, wk.ci == 0 && wk.cj == 0, jb);
   }
@@ -625,14 +700,14 @@ template <int L>
 cudaError_t launch_k5(const int8_t* a, int La, const int8_t* bpad, int Lb,
                       const int32_t* mn, int t_words, int32_t* ops,
                       int32_t* end, int n_jobs, uint8_t* bits,
-                      cudaStream_t stream) {
+                      uint8_t* cig, int cig_stride, cudaStream_t stream) {
   const int smem = kWarpsK5 * kStage * 16 * L;
   cudaError_t err = cudaFuncSetAttribute(
       affine_tb_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n_jobs + kWarpsK5 - 1) / kWarpsK5;
   affine_tb_kernel<L><<<blocks, 32 * kWarpsK5, smem, stream>>>(
-      a, La, bpad, Lb, mn, t_words, ops, end, n_jobs, bits);
+      a, La, bpad, Lb, mn, t_words, ops, end, n_jobs, bits, cig, cig_stride);
   return cudaGetLastError();
 }
 
@@ -640,77 +715,85 @@ template <int L>
 cudaError_t launch_k6(const int8_t* a, int La, const int8_t* bpad, int Lb,
                       const int32_t* mn, int t_words, int32_t* ops,
                       int32_t* end, int n_jobs, int32_t* ckpt,
-                      cudaStream_t stream) {
+                      uint8_t* cig, int cig_stride, cudaStream_t stream) {
   const int smem = kBlock * 16 * L;
   cudaError_t err = cudaFuncSetAttribute(
       affine_tb_ckpt_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   affine_tb_ckpt_kernel<L><<<n_jobs, 32, smem, stream>>>(
-      a, La, bpad, Lb, mn, t_words, ops, end, n_jobs, ckpt);
+      a, La, bpad, Lb, mn, t_words, ops, end, n_jobs, ckpt, cig, cig_stride);
   return cudaGetLastError();
 }
 
-cudaError_t check_args(int k, int t_words, int La, int Lb) {
-  return (t_words <= 0 || Lb < La + 2 * (k + 1) + 2) ? cudaErrorInvalidValue
-                                                      : cudaSuccess;
+cudaError_t check_args(int k, int t_words, int La, int Lb, const void* cig,
+                       int cig_stride) {
+  const bool bad_cig = cig == nullptr || cig_stride < 4 || cig_stride % 4;
+  return (t_words <= 0 || Lb < La + 2 * (k + 1) + 2 || bad_cig)
+             ? cudaErrorInvalidValue
+             : cudaSuccess;
 }
 
 }  // namespace
 
 // bits holds La * (k + 1) * n_jobs bytes (W / 2 per row and member),
-// allocated by the caller. k is 63, 127, 255 or 511.
+// allocated by the caller, and cig n_jobs rows of cig_stride bytes (a
+// multiple of 4; a member's row wants 4 + m + n). k is 63, 127, 255 or 511.
 extern "C" int otter_affine_tb(const int8_t* a, int La, const int8_t* bpad,
                                int Lb, const int32_t* mn, int k, int t_words,
                                int32_t* ops, int32_t* end, int n_jobs,
-                               void* bits, void* stream) {
-  const cudaError_t bad = check_args(k, t_words, La, Lb);
+                               void* bits, void* cig, int cig_stride,
+                               void* stream) {
+  const cudaError_t bad = check_args(k, t_words, La, Lb, cig, cig_stride);
   if (bad != cudaSuccess) return static_cast<int>(bad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint8_t* bt = static_cast<uint8_t*>(bits);
+  uint8_t* cg = static_cast<uint8_t*>(cig);
   switch (k) {
     case 63:
       return launch_k5<4>(a, La, bpad, Lb, mn, t_words, ops, end, n_jobs, bt,
-                          s);
+                          cg, cig_stride, s);
     case 127:
       return launch_k5<8>(a, La, bpad, Lb, mn, t_words, ops, end, n_jobs, bt,
-                          s);
+                          cg, cig_stride, s);
     case 255:
       return launch_k5<16>(a, La, bpad, Lb, mn, t_words, ops, end, n_jobs,
-                           bt, s);
+                           bt, cg, cig_stride, s);
     case 511:
       return launch_k5<32>(a, La, bpad, Lb, mn, t_words, ops, end, n_jobs,
-                           bt, s);
+                           bt, cg, cig_stride, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // ckpt holds max(1, ceil(La / 256)) * 4 (k + 1) * n_jobs int32 (H and F of
-// W lanes per checkpoint and member), allocated by the caller. k is 63,
-// 127, 255 or 511.
+// W lanes per checkpoint and member), allocated by the caller; cig as for
+// otter_affine_tb. k is 63, 127, 255 or 511.
 extern "C" int otter_affine_tb_ckpt(const int8_t* a, int La,
                                     const int8_t* bpad, int Lb,
                                     const int32_t* mn, int k, int t_words,
                                     int32_t* ops, int32_t* end, int n_jobs,
-                                    void* ckpt, void* stream) {
-  const cudaError_t bad = check_args(k, t_words, La, Lb);
+                                    void* ckpt, void* cig, int cig_stride,
+                                    void* stream) {
+  const cudaError_t bad = check_args(k, t_words, La, Lb, cig, cig_stride);
   if (bad != cudaSuccess) return static_cast<int>(bad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* ck = static_cast<int32_t*>(ckpt);
+  uint8_t* cg = static_cast<uint8_t*>(cig);
   switch (k) {
     case 63:
       return launch_k6<4>(a, La, bpad, Lb, mn, t_words, ops, end, n_jobs, ck,
-                          s);
+                          cg, cig_stride, s);
     case 127:
       return launch_k6<8>(a, La, bpad, Lb, mn, t_words, ops, end, n_jobs, ck,
-                          s);
+                          cg, cig_stride, s);
     case 255:
       return launch_k6<16>(a, La, bpad, Lb, mn, t_words, ops, end, n_jobs,
-                           ck, s);
+                           ck, cg, cig_stride, s);
     case 511:
       return launch_k6<32>(a, La, bpad, Lb, mn, t_words, ops, end, n_jobs,
-                           ck, s);
+                           ck, cg, cig_stride, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

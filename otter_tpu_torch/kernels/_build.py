@@ -128,10 +128,10 @@ def load() -> ctypes.CDLL:
             lib.otter_edit_banded_ends_free_shape.argtypes = [_I, _P]
             lib.otter_affine_tb.restype = _I
             lib.otter_affine_tb.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P,
-                                            _P, _I, _P, _P]
+                                            _P, _I, _P, _P, _I, _P]
             lib.otter_affine_tb_ckpt.restype = _I
             lib.otter_affine_tb_ckpt.argtypes = [_P, _I, _P, _I, _P, _I, _I,
-                                                 _P, _P, _I, _P, _P]
+                                                 _P, _P, _I, _P, _P, _I, _P]
             lib.otter_kde_scaled.restype = _I
             lib.otter_kde_scaled.argtypes = [_P, _I, _P, _P, _P, _I, _I, _I,
                                              _P, _P, _P]

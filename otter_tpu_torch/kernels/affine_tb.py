@@ -9,9 +9,14 @@ walk); on the card both run one warp per member (see
 ``pack_affine_jobs`` builds (the JAX package's layout: int8 codes, ``mn``
 (B, 8) with the band-validity cap) and return ``(ops, end)``: (B, t_words)
 int32 walk codes, 16 per word, and (B, 4) int32 (score, end i, end j,
-walked); K6's results are K5's. ``affine_cigars_tb`` is the host side:
-band buckets, escalation, and the decode into cigars; members it cannot
-prove optimal come back as failed, for the native ladder.
+walked); K6's results are K5's. Both also write every member's cigar as
+finished bytes into ``cig``, a (B, stride) uint8 buffer (the layout of
+``csrc/affine_tb.cu``'s ``struct Cigar``: an int32 offset, then the op
+string, M / X resolved, with the free ends' tails); where the caller
+passes none, the wrapper allocates one. ``affine_cigars_tb`` is
+the host side: band buckets, escalation, and one slice of those bytes a
+member; members it cannot prove optimal come back as failed, for the
+native ladder.
 
 ``affine_tb_cuda`` / ``affine_tb_ckpt_cuda`` launch the hand-written
 kernels, ``affine_tb_torch`` is the plain PyTorch version of both (same
@@ -28,7 +33,7 @@ import torch
 
 from ..ops.align_np import (GAP_EXT, GAP_OPEN, MISMATCH, _codes,
                             band_validity_cap)
-from ..utils.metrics import to_host
+from ..utils.metrics import add, to_host
 from .myers_pallas import data_ptr
 
 K_DEV, K_WIDE, K_ONT, K_XWIDE = 63, 127, 255, 511
@@ -40,6 +45,7 @@ CKPT_CELLS = 1 << 20     # rows * W from which a bucket takes K6
 CKPT_BLOCK = 256         # K6's checkpoint interval, in rows
 _INF = 1 << 28
 OP_DIAG, OP_INS, OP_DEL = 1, 2, 3
+_OP_LUT = np.frombuffer(b"?MID", dtype=np.uint8)  # code -> op char
 
 
 def pack_affine_jobs(jobs: List[Tuple[str, str, int, int, int, int]],
@@ -63,7 +69,10 @@ def pack_affine_jobs(jobs: List[Tuple[str, str, int, int, int, int]],
     return a, bpad, mn
 
 
-def _check(a, bpad, mn, k: int, t_words: int) -> None:
+def _check(a, bpad, mn, k: int, t_words: int, cig=None) -> torch.Tensor:
+    """Raises on bad inputs; returns ``cig``, or where it is None a new
+    buffer whose rows fit any member the arrays hold (4 + La + Lb bytes,
+    rounded up to a multiple of 4)."""
     B, La = a.shape
     if a.dtype != torch.int8 or bpad.dtype != torch.int8 \
             or mn.dtype != torch.int32:
@@ -75,6 +84,15 @@ def _check(a, bpad, mn, k: int, t_words: int) -> None:
         raise ValueError("all inputs must be on one device")
     if t_words <= 0:
         raise ValueError("t_words must be positive")
+    if cig is None:
+        stride = -(-(4 + La + bpad.shape[1]) // 4) * 4
+        return torch.empty((B, stride), dtype=torch.uint8, device=a.device)
+    if cig.dtype != torch.uint8 or cig.dim() != 2 or cig.shape[0] != B \
+            or cig.shape[1] < 4 or cig.shape[1] % 4 \
+            or not cig.is_contiguous() or cig.device != a.device:
+        raise ValueError("cig must be a contiguous uint8 (B, stride) tensor "
+                         "on the inputs' device, stride a multiple of 4")
+    return cig
 
 
 def _to_int32(x: torch.Tensor) -> torch.Tensor:
@@ -83,11 +101,12 @@ def _to_int32(x: torch.Tensor) -> torch.Tensor:
 
 
 def affine_tb_torch(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
-                    k: int, t_words: int):
+                    k: int, t_words: int, cig=None):
     """Plain PyTorch K5, vectorised over members: the DP row by row (E as a
     cummin along the row), then every member's walk one step at a time.
-    Returns (ops (B, t_words) int32, end (B, 4) int32)."""
-    _check(a, bpad, mn, k, t_words)
+    Returns (ops (B, t_words) int32, end (B, 4) int32) and fills ``cig``
+    with the cigar bytes (``_write_cigars``)."""
+    cig = _check(a, bpad, mn, k, t_words, cig)
     dev = a.device
     B, La = a.shape
     W = 2 * (k + 1)
@@ -212,10 +231,51 @@ def affine_tb_torch(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
                                      ).unsqueeze(1))
         n_ops = n_ops + emit.to(torch.int64)
     done = walk & (ci == 0) & (cj == 0)
-    end = torch.stack([best_s, torch.where(walk, best_i, 0),
-                       torch.where(walk, best_j, 0), done.to(torch.int64)],
-                      dim=1)
+    ei = torch.where(walk, best_i, 0)
+    ej = torch.where(walk, best_j, 0)
+    end = torch.stack([best_s, ei, ej, done.to(torch.int64)], dim=1)
+    _write_cigars(cig, ops, n_ops, a64, b64, ei, ej, m, n, k1)
     return _to_int32(ops), end.to(torch.int32)
+
+
+def _write_cigars(cig, ops, n_ops, a64, b64, ei, ej, m, n, k1) -> None:
+    """The cigar bytes the kernels write (``csrc/affine_tb.cu``, ``struct
+    Cigar``), from the walk codes: int32 offset of the cigar's first byte
+    at [0, 4), op r of the walk (walk order) at byte top - 1 - r with top =
+    4 + ei + ej, M or X as the chars at the cell the op leaves, (ei, ej)
+    less the ops before it, are equal or not; then D * (m - ei) and
+    I * (n - ej) up to 4 + m + n. A row too short gets offset 0."""
+    B, C = cig.shape
+    dev = cig.device
+    i32 = dict(device=dev, dtype=torch.int32)
+    T = int(n_ops.max()) if B else 0
+    r = torch.arange(T, device=dev)
+    codes = ((ops[:, r >> 4] >> (2 * (r & 15))) & 3).to(torch.int32)
+    diag = codes == OP_DIAG
+    di = (diag | (codes == OP_DEL)).to(torch.int32)
+    dj = (diag | (codes == OP_INS)).to(torch.int32)
+    ci = ei.to(torch.int32).unsqueeze(1) - (di.cumsum(1, dtype=torch.int32)
+                                            - di)
+    cj = ej.to(torch.int32).unsqueeze(1) - (dj.cumsum(1, dtype=torch.int32)
+                                            - dj)
+    pa = a64.gather(1, (ci - 1).clamp(0, a64.shape[1] - 1).long())
+    pt = b64.gather(1, (cj - 1 + k1).clamp(0, b64.shape[1] - 1).long())
+    chars = torch.tensor(_OP_LUT, **i32)[codes.long()]
+    chars = torch.where(diag & (pa != pt), ord("X"), chars)
+    top = (4 + ei + ej).to(torch.int32)
+    fits = (4 + m + n <= C).unsqueeze(1)
+    pos = torch.where((r < n_ops.unsqueeze(1)) & fits,
+                      top.unsqueeze(1) - 1 - r, C)
+    out = torch.zeros((B, C + 1), device=dev, dtype=torch.uint8)
+    out.scatter_(1, pos.long(), chars.to(torch.uint8))
+    out = out[:, :C]
+    col = torch.arange(C, device=dev).unsqueeze(0)
+    mid = (top + m - ei).unsqueeze(1)
+    out[fits & (col >= top.unsqueeze(1)) & (col < mid)] = ord("D")
+    out[fits & (col >= mid) & (col < (4 + m + n).unsqueeze(1))] = ord("I")
+    first = torch.where(fits.squeeze(1), top - n_ops.to(torch.int32), 0)
+    out[:, :4] = first.contiguous().view(torch.uint8).view(B, 4)
+    cig.copy_(out)
 
 
 def scratch_bytes_per_member(max_rows: int, k: int, ckpt: bool) -> int:
@@ -236,13 +296,14 @@ def _check_band(k: int) -> None:
 
 
 def affine_tb_cuda(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
-                   k: int, t_words: int):
+                   k: int, t_words: int, cig=None):
     """K5 on the card (``csrc/affine_tb.cu``): one launch on the current
     stream, no synchronisation, one warp per member, the traceback codes
-    in device memory. Raises on bad inputs or a refused launch."""
+    in device memory, the cigar bytes into ``cig``. Raises on bad inputs or
+    a refused launch."""
     from . import _build
 
-    _check(a, bpad, mn, k, t_words)
+    cig = _check(a, bpad, mn, k, t_words, cig)
     _check_band(k)
     if not a.is_cuda:
         raise ValueError("affine_tb_cuda takes CUDA tensors")
@@ -259,7 +320,8 @@ def affine_tb_cuda(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
         err = lib.otter_affine_tb(data_ptr(a), La, data_ptr(bpad),
                                   bpad.shape[1], data_ptr(mn), k, t_words,
                                   data_ptr(ops), data_ptr(end), B,
-                                  data_ptr(bits), stream)
+                                  data_ptr(bits), data_ptr(cig),
+                                  cig.shape[1], stream)
     _build.check(lib, err, "affine_tb_cuda")
     affine_tb_cuda.launches += 1
     return ops, end
@@ -269,14 +331,15 @@ affine_tb_cuda.launches = 0
 
 
 def affine_tb_ckpt_cuda(a: torch.Tensor, bpad: torch.Tensor,
-                        mn: torch.Tensor, k: int, t_words: int):
+                        mn: torch.Tensor, k: int, t_words: int, cig=None):
     """K6 on the card (``csrc/affine_tb.cu``): one launch on the current
     stream, no synchronisation, K5's results from H/F checkpoints every 256
     rows (the walk recomputes a block of codes at a time in shared
-    memory). Raises on bad inputs or a refused launch."""
+    memory), and K5's cigar bytes into ``cig``. Raises on bad inputs or a
+    refused launch."""
     from . import _build
 
-    _check(a, bpad, mn, k, t_words)
+    cig = _check(a, bpad, mn, k, t_words, cig)
     _check_band(k)
     if not a.is_cuda:
         raise ValueError("affine_tb_ckpt_cuda takes CUDA tensors")
@@ -292,7 +355,8 @@ def affine_tb_ckpt_cuda(a: torch.Tensor, bpad: torch.Tensor,
     with torch.cuda.device(a.device):
         err = lib.otter_affine_tb_ckpt(
             data_ptr(a), La, data_ptr(bpad), bpad.shape[1], data_ptr(mn), k,
-            t_words, data_ptr(ops), data_ptr(end), B, data_ptr(ckpt), stream)
+            t_words, data_ptr(ops), data_ptr(end), B, data_ptr(ckpt),
+            data_ptr(cig), cig.shape[1], stream)
     _build.check(lib, err, "affine_tb_ckpt_cuda")
     affine_tb_ckpt_cuda.launches += 1
     return ops, end
@@ -302,38 +366,36 @@ affine_tb_ckpt_cuda.launches = 0
 
 
 def affine_tb_ckpt(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor,
-                   k: int, t_words: int):
+                   k: int, t_words: int, cig=None):
     """K6 by device: the CUDA kernel for CUDA tensors (it launches or
     raises), the plain version (K5's) for CPU tensors."""
     if a.is_cuda:
-        return affine_tb_ckpt_cuda(a, bpad, mn, k, t_words)
+        return affine_tb_ckpt_cuda(a, bpad, mn, k, t_words, cig)
     if a.device.type == "cpu":
-        return affine_tb_torch(a, bpad, mn, k, t_words)
+        return affine_tb_torch(a, bpad, mn, k, t_words, cig)
     raise ValueError(f"no K6 version for device {a.device}")
 
 
 def affine_tb(a: torch.Tensor, bpad: torch.Tensor, mn: torch.Tensor, k: int,
-              t_words: int):
+              t_words: int, cig=None):
     """K5 by device: the CUDA kernel for CUDA tensors (it launches or
     raises), the plain version for CPU tensors."""
     if a.is_cuda:
-        return affine_tb_cuda(a, bpad, mn, k, t_words)
+        return affine_tb_cuda(a, bpad, mn, k, t_words, cig)
     if a.device.type == "cpu":
-        return affine_tb_torch(a, bpad, mn, k, t_words)
+        return affine_tb_torch(a, bpad, mn, k, t_words, cig)
     raise ValueError(f"no K5 version for device {a.device}")
 
 
 # ---------------------------------------------------------------------------
-# Host side: band buckets, escalation, decode
+# Host side: band buckets, escalation, cigars
 # ---------------------------------------------------------------------------
-
-_OP_LUT = np.frombuffer(b"?MID", dtype=np.uint8)
-
 
 def _decode_walk_ops(codes: np.ndarray, p: str, t: str,
                      ei: int, ej: int, m: int, n: int) -> str:
     """Walk codes (reverse order) -> per-base op string with M/X resolved
-    against the sequences, plus the free-end tails."""
+    against the sequences, plus the free-end tails: the host's decode, which
+    the kernels' cigar bytes are held to."""
     fwd = codes[::-1]
     chars = _OP_LUT[fwd]
     di = (fwd != OP_INS).astype(np.int64)
@@ -356,6 +418,25 @@ def _unpack_codes(obuf: np.ndarray, t_words: int) -> np.ndarray:
     shifts = (np.arange(16, dtype=np.uint32) * 2)[None, None, :]
     codes = (obuf.astype(np.uint32)[:, :, None] >> shifts) & 3
     return codes.reshape(B, t_words * 16).astype(np.uint8)
+
+
+def cigar_stride(jobs) -> int:
+    """Bytes of a cigar row wide enough for every job: the int32 offset and
+    m + n op bytes at most, rounded up to a multiple of 4."""
+    need = 4 + max(len(j[0]) for j in jobs) + max(len(j[1]) for j in jobs)
+    return -(-need // 4) * 4
+
+
+def read_cigars(rows: np.ndarray, mn: np.ndarray, which) -> List[str]:
+    """The cigars of members ``which`` from a launch's cigar bytes copied to
+    the host (``rows``, (B, stride) uint8; ``mn`` the packed (m, n, ...)):
+    one slice of one bytes object each."""
+    which = np.asarray(which, dtype=np.int64)
+    base = which * rows.shape[1]
+    lo = (base + rows.view("<i4")[which, 0]).tolist()
+    hi = (base + 4 + mn[which, 0] + mn[which, 1]).tolist()
+    buf = rows.tobytes()
+    return [buf[x:y].decode() for x, y in zip(lo, hi)]
 
 
 def _rows_bucket(m: int) -> int:
@@ -405,10 +486,13 @@ def affine_cigars_tb(jobs: List[Tuple[str, str, int, int, int, int]],
                      device, dist_hints=None):
     """Cigars of (pattern, text, pb, pe, tb, te) jobs through K5 on
     ``device``; returns (cigars, failed indices). Jobs are bucketed by
-    (band, pattern rows), one launch per bucket chunk; a member whose band
-    cannot prove optimality escalates to its next admissible band, and
-    members that exhaust them come back failed (the caller's native
-    ladder computes the same cigar)."""
+    (band, pattern rows), one launch per bucket chunk, which writes every
+    member's cigar bytes; a member whose band cannot prove optimality
+    escalates to its next admissible band, and members that exhaust them
+    come back failed (the caller's native ladder computes the same cigar).
+    Counters: ``affine_cigar_members`` one a job, ``affine_card_cigars``
+    one a member whose cigar came from a launch's bytes."""
+    add("affine_cigar_members", len(jobs))
     cigars: List[str] = [""] * len(jobs)
     failed: List[int] = []
     pending: dict = {}
@@ -438,30 +522,32 @@ def affine_cigars_tb(jobs: List[Tuple[str, str, int, int, int, int]],
             # K6 once a member's rows * W reach CKPT_CELLS
             use_ckpt = max_rows * W >= CKPT_CELLS
             run = affine_tb_ckpt if use_ckpt else affine_tb
-            chunk = max(1, SCRATCH_BYTES // scratch_bytes_per_member(
-                max_rows, k, use_ckpt))
+            stride = cigar_stride([jobs[i] for i in idxs])
+            chunk = max(1, SCRATCH_BYTES // (scratch_bytes_per_member(
+                max_rows, k, use_ckpt) + stride))
             for c0 in range(0, len(idxs), chunk):
                 sub_idx = idxs[c0 : c0 + chunk]
-                sub = [jobs[i] for i in sub_idx]
-                a, bpad, mn = pack_affine_jobs(sub, max_rows, k)
-                ops, end = run(
+                a, bpad, mn = pack_affine_jobs([jobs[i] for i in sub_idx],
+                                               max_rows, k)
+                cig = torch.empty((len(sub_idx), stride), dtype=torch.uint8,
+                                  device=device)
+                _ops, end = run(
                     *(torch.from_numpy(x).to(device) for x in (a, bpad, mn)),
-                    k, t_words)
-                codes_all = _unpack_codes(to_host(ops), t_words)
+                    k, t_words, cig)
+                rows = to_host(cig)
                 end = to_host(end)
-                for bi, idx in enumerate(sub_idx):
-                    p, t, pb, pe, tb, te = jobs[idx]
-                    m, n = len(p), len(t)
-                    score, ei, ej, ok = (int(v) for v in end[bi])
-                    if not ok or score >= band_validity_cap(m, n, pb, pe, tb,
-                                                            te, k):
-                        if pending[idx]:
-                            retry[idx] = pending[idx]
-                        else:
-                            failed.append(idx)
-                        continue
-                    row = codes_all[bi]
-                    cigars[idx] = _decode_walk_ops(row[row != 0], p, t, ei,
-                                                   ej, m, n)
+                # walked to (0, 0) below the band's validity cap: optimal
+                keep = (end[:, 3] == 1) & (end[:, 0] < mn[:, 6])
+                kept = np.flatnonzero(keep)
+                for bi, cigar in zip(kept.tolist(),
+                                     read_cigars(rows, mn, kept)):
+                    cigars[sub_idx[bi]] = cigar
+                add("affine_card_cigars", len(kept))
+                for bi in np.flatnonzero(~keep).tolist():
+                    idx = sub_idx[bi]
+                    if pending[idx]:
+                        retry[idx] = pending[idx]
+                    else:
+                        failed.append(idx)
         pending = retry
     return cigars, failed

@@ -13,7 +13,9 @@ its root's time. While a ``torch.profiler`` is active each span is also a
 device trace; with none active no range is opened. ``to_host`` is the one
 blocking device-to-host read: span ``device_wait``, counter
 ``device_syncs``. ``io/bgzf.py`` counts each BGZF block it inflates in
-``bgzf_inflates``.
+``bgzf_inflates``; ``kernels/affine_tb.py`` each consensus member it is
+given in ``affine_cigar_members``, and each whose cigar it reads from K5 /
+K6's bytes in ``affine_card_cigars``.
 """
 
 from __future__ import annotations

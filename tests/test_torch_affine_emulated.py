@@ -482,11 +482,13 @@ def emulated(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     for fn in (so.otter_affine_tb, so.otter_affine_tb_ckpt):
         fn.restype = I
-        fn.argtypes = [P, I, P, I, P, I, I, P, P, I, P, P]
+        fn.argtypes = [P, I, P, I, P, I, I, P, P, I, P, P, I, P]
     return so
 
 
 def _emulated_run(so, jobs, rows, k, ckpt):
+    """(ops, end, cigars) of the emulated kernel and of the plain version,
+    the cigars every member's, read from the cigar bytes."""
     a, bpad, mn = K.pack_affine_jobs(jobs, rows, k)
     tw = K._t_words(rows, k)
     B, La = a.shape
@@ -494,14 +496,21 @@ def _emulated_run(so, jobs, rows, k, ckpt):
     end = np.full((B, 4), -7, dtype=np.int32)
     scratch = np.zeros(B * K.scratch_bytes_per_member(La, k, ckpt),
                        dtype=np.uint8)
+    stride = K.cigar_stride(jobs)
+    cig = np.full((B, stride), ord("?"), dtype=np.uint8)
     fn = so.otter_affine_tb_ckpt if ckpt else so.otter_affine_tb
-    err = fn(a.ctypes.data, La, bpad.ctypes.data, bpad.shape[1],
-             mn.ctypes.data, k, tw, ops.ctypes.data, end.ctypes.data, B,
-             scratch.ctypes.data, None)
-    assert err == 0
+    head = (a.ctypes.data, La, bpad.ctypes.data, bpad.shape[1],
+            mn.ctypes.data, k, tw, ops.ctypes.data, end.ctypes.data, B,
+            scratch.ctypes.data)
+    assert fn(*head, None, stride, None) != 0  # no cigar buffer: refused
+    assert fn(*head, cig.ctypes.data, stride, None) == 0
+    cig_p = torch.empty((B, stride), dtype=torch.uint8)
     ops_p, end_p = K.affine_tb_torch(
-        *(torch.from_numpy(x) for x in (a, bpad, mn)), k, tw)
-    return (ops, end), (ops_p.numpy(), end_p.numpy())
+        *(torch.from_numpy(x) for x in (a, bpad, mn)), k, tw, cig_p)
+    every = np.arange(B)
+    return ((ops, end, K.read_cigars(cig, mn, every)),
+            (ops_p.numpy(), end_p.numpy(),
+             K.read_cigars(cig_p.numpy(), mn, every)))
 
 
 def _members(rng, n, lo, hi):
@@ -530,11 +539,13 @@ def _members(rng, n, lo, hi):
 def test_cuda_source_k5_k6_emulated_match_plain(emulated, k):
     """K5 and K6 as written for the card, run on the emulated warps: every
     end cell and walk word equal to the plain version's (exact), for
-    members of one to two 256-row blocks and last-column ties."""
+    members of one to two 256-row blocks and last-column ties, and every
+    member's cigar bytes equal to the plain version's."""
     rng = random.Random(40 + k)
     jobs = _members(rng, 7, 120, 460) + last_column_tie_jobs(rng, 2)
     for ckpt in (False, True):
         got, want = _emulated_run(emulated, jobs, 512, k, ckpt)
         assert np.array_equal(got[1], want[1])
         assert np.array_equal(got[0], want[0])
+        assert got[2] == want[2]
     assert want[1][:, 3].sum() >= len(jobs) // 2

@@ -361,6 +361,55 @@ def test_affine_tb_cuda_matches_plain(cuda_device, k):
         assert cigs[i] == want[i]
 
 
+@pytest.mark.parametrize("rows", [4096, 8192])
+def test_affine_cigar_bytes_cuda_panel_shapes(cuda_device, rows):
+    """Panel-shaped members (3-5 kb alleles at k = 63, free ends on either
+    side, one unrelated member that is not walked) through K5 <4> and
+    K6 <4>: each kernel's (ops, end) into a given cigar buffer equal its own
+    into the buffer its wrapper allocates and the plain version's, and its
+    cigar bytes equal the plain version's and the host decode of the walk
+    codes (exact)."""
+    k = 63
+    rng = random.Random(2300 + rows)
+    jobs = []
+    for i in range(24):
+        rep = _acgt(rng, rng.randint(rows // 2 + 1000, rows - 200)
+                    if rows == 4096 else rng.randint(4200, 5000))
+        mem = _mutate(rng, rep, rng.choice([0.002, 0.01, 0.02]))
+        if i == 23:
+            mem = _acgt(rng, len(rep))
+        cut = rng.randint(0, 300)
+        jobs.append([(mem, rep, 0, 0, 0, 0), (mem[cut:], rep, 0, 0, cut, 0),
+                     (rep, mem[cut:], cut, 0, 0, 0)][i % 3])
+    a, bpad, mn = K5.pack_affine_jobs(jobs, rows, k)
+    tw = K5._t_words(rows, k)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (a, bpad, mn)]
+    stride = K5.cigar_stride(jobs)
+    cig_p = torch.empty((len(jobs), stride), dtype=torch.uint8,
+                        device=cuda_device)
+    ops_p, end_p = K5.affine_tb_torch(*args, k, tw, cig_p)
+    every = np.arange(len(jobs))
+    want = K5.read_cigars(cig_p.cpu().numpy(), mn, every)
+    codes = K5._unpack_codes(ops_p.cpu().numpy(), tw)
+    end = end_p.cpu().numpy()
+    for b, (p, t, *_f) in enumerate(jobs):
+        assert want[b] == K5._decode_walk_ops(
+            codes[b][codes[b] != 0], p, t, int(end[b, 1]), int(end[b, 2]),
+            len(p), len(t)), b
+    assert 0 < end[:, 3].sum() < len(jobs)
+    for run in (K5.affine_tb_cuda, K5.affine_tb_ckpt_cuda):
+        cig = torch.full((len(jobs), stride), ord("?"), dtype=torch.uint8,
+                         device=cuda_device)
+        before = run.launches
+        ops, end_c = run(*args, k, tw, cig)
+        ops0, end0 = run(*args, k, tw)
+        assert run.launches == before + 2
+        assert torch.equal(ops, ops0) and torch.equal(end_c, end0)
+        assert torch.equal(ops, ops_p) and torch.equal(end_c, end_p)
+        assert K5.read_cigars(cig.cpu().numpy(), mn, every) == want, \
+            run.__name__
+
+
 @pytest.mark.parametrize("k", [63, 127, 255, 511])
 def test_affine_tb_cuda_one_member(cuda_device, k):
     """A launch of one member (one warp, most of K5's block idle), a
