@@ -1107,159 +1107,6 @@ void otter_anreads_free(void* h) { delete static_cast<AnreadBatch*>(h); }
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Myers kernel bucket packing, written directly in the Pallas plane layout
-// (kernels/myers_pallas.py::pack_for_pallas + _to_planes). Pair b maps to
-// (prog, tb, lane) = (b / 1024, (b % 1024) / 128, b % 128); every plane is
-// row-major (rows of 128 lanes):
-//   peq  row ((prog*4 + code)*n_words + w)*TB + tb   bit i%32 of word i/32
-//   tpack row (prog*n_twords + w)*TB + tb            char j -> bits 2j..2j+1
-//                                                    of word j/16
-//   sel  row (prog*n_words + w)*TB + tb              one-hot bit of row m-1
-//   nlen/minit row prog*TB + tb                      text len / pattern len
-// Arrays arrive zero-initialised; padding slots (b >= n_pairs) stay zero,
-// matching the numpy oracle (255-padded codes produce no peq bits and texts
-// pad as 'A' = 0). Pairs write disjoint (row, lane) elements, so threading
-// round-robin over pairs is race-free.
-// ---------------------------------------------------------------------------
-
-namespace {
-constexpr int32_t kTB = 8;
-constexpr int32_t kLanes = 128;
-constexpr int32_t kPairsPerProg = kTB * kLanes;
-}  // namespace
-
-extern "C" {
-
-// buf/offs: 2*B sequences laid out pairwise (x_i, y_i), offs has 2B+1
-// entries. Pattern = the shorter of (x, y), ties -> x (numpy oracle order).
-void otter_myers_pack_planes(const uint8_t* buf, const int64_t* offs,
-                             int32_t n_pairs, int32_t n_words,
-                             int32_t n_twords, int32_t n_threads,
-                             uint32_t* peq, uint32_t* tpack, int32_t* nlen,
-                             uint32_t* sel, int32_t* minit) {
-  if (n_threads < 1) n_threads = 1;
-  uint8_t code_of[256];
-  std::memset(code_of, 0, sizeof(code_of));
-  code_of['A'] = 0; code_of['C'] = 1; code_of['G'] = 2; code_of['T'] = 3;
-  auto worker = [&](int32_t t) {
-    for (int32_t b = t; b < n_pairs; b += n_threads) {
-      const uint8_t* x = buf + offs[2 * b];
-      const int64_t xl = offs[2 * b + 1] - offs[2 * b];
-      const uint8_t* y = buf + offs[2 * b + 1];
-      const int64_t yl = offs[2 * b + 2] - offs[2 * b + 1];
-      const uint8_t* pat = x; int32_t m = int32_t(xl);
-      const uint8_t* txt = y; int32_t n = int32_t(yl);
-      if (xl > yl) { pat = y; m = int32_t(yl); txt = x; n = int32_t(xl); }
-      const int32_t prog = b / kPairsPerProg;
-      const int32_t tb = (b % kPairsPerProg) / kLanes;
-      const int32_t lane = b % kLanes;
-      const int64_t cell = int64_t(tb) * kLanes + lane;
-      nlen[int64_t(prog) * kPairsPerProg + cell] = n;
-      minit[int64_t(prog) * kPairsPerProg + cell] = m;
-      if (m > 0) {
-        const int32_t sw = (m - 1) / 32;
-        sel[(int64_t(prog) * n_words + sw) * kPairsPerProg + cell] =
-            uint32_t(1) << ((m - 1) % 32);
-      }
-      // peq: per word, 4 letter planes
-      for (int32_t w = 0; w < (m + 31) / 32; ++w) {
-        uint32_t acc[4] = {0, 0, 0, 0};
-        const int32_t hi = std::min(m, (w + 1) * 32);
-        for (int32_t i = w * 32; i < hi; ++i)
-          acc[code_of[pat[i]]] |= uint32_t(1) << (i % 32);
-        const int64_t base =
-            (int64_t(prog) * 4 * n_words + int64_t(w)) * kPairsPerProg + cell;
-        for (int32_t c = 0; c < 4; ++c)
-          peq[base + int64_t(c) * n_words * kPairsPerProg] = acc[c];
-      }
-      // tpack: 16 chars / word, 2 bits each
-      for (int32_t w = 0; w < (n + 15) / 16; ++w) {
-        uint32_t acc = 0;
-        const int32_t hi = std::min(n, (w + 1) * 16);
-        for (int32_t j = w * 16; j < hi; ++j)
-          acc |= uint32_t(code_of[txt[j]]) << (2 * (j % 16));
-        tpack[(int64_t(prog) * n_twords + w) * kPairsPerProg + cell] = acc;
-      }
-    }
-  };
-  if (n_threads == 1) {
-    worker(0);
-  } else {
-    std::vector<std::thread> threads;
-    for (int32_t t = 0; t < n_threads; ++t) threads.emplace_back(worker, t);
-    for (auto& th : threads) th.join();
-  }
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// Packed-pattern Myers bucket: instead of 4 one-hot bit-planes + a sel plane
-// (5*n_words words/pair over the host->device link), the pattern ships
-// 2-bit packed like the text (2*n_words words/pair) and the kernel expands
-// the Peq planes + sel mask into VMEM scratch (myers_pallas.py::
-// _myers_kernel_packed). Pattern padding packs as 'A' = 0: in Myers' DP all
-// carry/shift information flows strictly from lower rows (LSBs) to higher
-// rows, so garbage rows past m-1 never reach the scored row.
-//   ppack row (prog*2*n_words + w)*TB + tb   char i -> bits 2(i%16)..+1 of
-//                                            word i/16
-// ---------------------------------------------------------------------------
-
-extern "C" {
-
-void otter_myers_pack_packed(const uint8_t* buf, const int64_t* offs,
-                             int32_t n_pairs, int32_t n_words,
-                             int32_t n_twords, int32_t n_threads,
-                             uint32_t* ppack, uint32_t* tpack, int32_t* nlen,
-                             int32_t* minit) {
-  if (n_threads < 1) n_threads = 1;
-  uint8_t code_of[256];
-  std::memset(code_of, 0, sizeof(code_of));
-  code_of['A'] = 0; code_of['C'] = 1; code_of['G'] = 2; code_of['T'] = 3;
-  const int32_t n_pwords = 2 * n_words;
-  auto worker = [&](int32_t t) {
-    for (int32_t b = t; b < n_pairs; b += n_threads) {
-      const uint8_t* x = buf + offs[2 * b];
-      const int64_t xl = offs[2 * b + 1] - offs[2 * b];
-      const uint8_t* y = buf + offs[2 * b + 1];
-      const int64_t yl = offs[2 * b + 2] - offs[2 * b + 1];
-      const uint8_t* pat = x; int32_t m = int32_t(xl);
-      const uint8_t* txt = y; int32_t n = int32_t(yl);
-      if (xl > yl) { pat = y; m = int32_t(yl); txt = x; n = int32_t(xl); }
-      const int32_t prog = b / kPairsPerProg;
-      const int32_t tb = (b % kPairsPerProg) / kLanes;
-      const int32_t lane = b % kLanes;
-      const int64_t cell = int64_t(tb) * kLanes + lane;
-      nlen[int64_t(prog) * kPairsPerProg + cell] = n;
-      minit[int64_t(prog) * kPairsPerProg + cell] = m;
-      for (int32_t w = 0; w < (m + 15) / 16; ++w) {
-        uint32_t acc = 0;
-        const int32_t hi = std::min(m, (w + 1) * 16);
-        for (int32_t i = w * 16; i < hi; ++i)
-          acc |= uint32_t(code_of[pat[i]]) << (2 * (i % 16));
-        ppack[(int64_t(prog) * n_pwords + w) * kPairsPerProg + cell] = acc;
-      }
-      for (int32_t w = 0; w < (n + 15) / 16; ++w) {
-        uint32_t acc = 0;
-        const int32_t hi = std::min(n, (w + 1) * 16);
-        for (int32_t j = w * 16; j < hi; ++j)
-          acc |= uint32_t(code_of[txt[j]]) << (2 * (j % 16));
-        tpack[(int64_t(prog) * n_twords + w) * kPairsPerProg + cell] = acc;
-      }
-    }
-  };
-  if (n_threads == 1) {
-    worker(0);
-  } else {
-    std::vector<std::thread> threads;
-    for (int32_t t = 0; t < n_threads; ++t) threads.emplace_back(worker, t);
-    for (auto& th : threads) th.join();
-  }
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
 // Average-linkage NN-chain hierarchical clustering (hclust-cpp semantics).
 //
 // Exact float64 parity with otter_tpu/ops/hclust.py::nn_chain_average_ref +

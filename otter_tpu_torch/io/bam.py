@@ -19,6 +19,7 @@ from typing import Iterator, List, Optional, Tuple
 
 from .bai import BaiIndex, reg2bin
 from .bgzf import BgzfReader, BgzfWriter
+from .. import native
 from ..utils.timestamp import antimestamp
 
 SEQ_NT16_STR = "=ACMGRSVTWYHKDBN"
@@ -314,19 +315,15 @@ class BamReader:
     def _native_records(self, raw: bytes,
                         region=None) -> Optional[List[BamRecord]]:
         """Decode a raw record stream with the C++ feeder (native/otter_native
-        .cpp); None when the native library is unavailable.
+        .cpp); None when OTTER_TPU_NATIVE_IO=0 selects the python decoder.
 
         region=(tid, start, end) applies the fetch overlap/unmapped filter on
         the numpy columns BEFORE building BamRecord objects — most decoded
         records in a BAI chunk don't overlap the query, so this skips the
         bulk of the python-object construction."""
-        if os.environ.get("OTTER_TPU_NATIVE_IO", "1") != "1":
+        if not native.enabled("IO"):
             return None
-        try:
-            from ..native import parse_bam_records
-            d = parse_bam_records(raw)
-        except Exception:
-            return None
+        d = native.parse_bam_records(raw)
         recs: List[BamRecord] = []
         n = len(d["ref_id"])
         names, seqs, auxs, cigars = d["names"], d["seqs"], d["auxs"], d["cigars"]
@@ -421,7 +418,8 @@ class BamReader:
             return
         if self.index is not None:
             for raw in self._walk(tid, start, end):
-                # decode a chunk with the native feeder when available
+                # decode a chunk with the native feeder, or with
+                # OTTER_TPU_NATIVE_IO=0 in python
                 recs = self._native_records(raw, region=(tid, start, end))
                 if recs is None:
                     recs = []

@@ -245,14 +245,6 @@ def _region_pair_coords(n: int) -> np.ndarray:
     return np.column_stack([iu, ju]).astype(np.int64)
 
 
-def process_region_batch(params: OtterOpts, batch: List[RegionWork],
-                         dist_backend, out: TextIO) -> None:
-    """Merge many regions' pair workloads into one device dispatch, then
-    finish each region in order."""
-    staged = _dispatch_batch(params, batch, dist_backend)
-    _finish_batch(params, staged, dist_backend, out)
-
-
 def _pair_workload(params: OtterOpts, batch: List[RegionWork]):
     """The batch's pair workload on the host: (spans, pairs, reassignment
     infos, ends-free jobs, index of the first reassignment pair). Spans are

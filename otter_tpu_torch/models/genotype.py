@@ -30,6 +30,7 @@ from typing import List, Optional, TextIO, Tuple
 
 import numpy as np
 
+from .. import native
 from ..config import OtterOpts
 from ..io.bam import BamReader
 from ..io.bed import BED, parse_bed_file
@@ -446,9 +447,7 @@ def genotype_process_batched(params: OtterOpts, bam_path: str,
         # matrices (the same C++ core as the per-matrix route, so the VCF
         # is unchanged); OTTER_TPU_NATIVE_HCLUST=0 clusters per region
         dendros_by_region = {}
-        if os.environ.get("OTTER_TPU_NATIVE_HCLUST", "1") == "1":
-            from ..native import hclust_average_native_batch
-
+        if native.enabled("HCLUST"):
             mats = []
             owners = []
             for i in live:
@@ -459,7 +458,7 @@ def genotype_process_batched(params: OtterOpts, bam_path: str,
                     mats.append((kvals_by_region[i], n_all))
                     owners.append((i, "kusage_dendro"))
             if mats:
-                outs = hclust_average_native_batch(mats)
+                outs = native.hclust_average_native_batch(mats)
                 for (i, key), mh in zip(owners, outs):
                     dendros_by_region.setdefault(i, {})[key] = mh
 

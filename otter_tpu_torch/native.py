@@ -5,6 +5,11 @@ Builds the shared library on demand with g++ (no external deps) into
 host halves of the pipeline: BAM parsing, the 2-bit pool packer, edit
 distances for pairs no kernel takes, the affine cigar ladder, hclust and
 the POA consensus.
+
+Each stage with a native half has a Python oracle beside it, and one
+switch chooses between them: ``enabled(name)``. With the switch on, the
+stage calls this library, and a failure (a build that fails, a missing
+symbol, an error inside a call) raises; nothing degrades to the oracle.
 """
 
 from __future__ import annotations
@@ -23,6 +28,13 @@ _SRC = os.path.join(_PKG_DIR, "csrc", "otter_native.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "otter_tpu_torch")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+
+def enabled(name: str) -> bool:
+    """Whether stage ``name`` takes its native half: OTTER_TPU_NATIVE_<name>,
+    default "1"; "0" selects the stage's Python oracle. The stages: IO,
+    ANREADS, ANALLELES, KMER, HCLUST, MEDOID, COSINE, AFFINE, POA."""
+    return os.environ.get(f"OTTER_TPU_NATIVE_{name}", "1") == "1"
 
 
 def _lib_path() -> str:
@@ -124,18 +136,6 @@ def get_lib() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int64),      # out_off
                 ctypes.POINTER(ctypes.c_int32),      # out_len
             ]
-            lib.otter_myers_pack_planes.restype = None
-            lib.otter_myers_pack_planes.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8),      # buf
-                ctypes.POINTER(ctypes.c_int64),      # offs
-                ctypes.c_int32, ctypes.c_int32,      # n_pairs, n_words
-                ctypes.c_int32, ctypes.c_int32,      # n_twords, n_threads
-                ctypes.POINTER(ctypes.c_uint32),     # peq
-                ctypes.POINTER(ctypes.c_uint32),     # tpack
-                ctypes.POINTER(ctypes.c_int32),      # nlen
-                ctypes.POINTER(ctypes.c_uint32),     # sel
-                ctypes.POINTER(ctypes.c_int32),      # minit
-            ]
             lib.otter_hclust_average.restype = None
             lib.otter_hclust_average.argtypes = [
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int32,
@@ -153,17 +153,6 @@ def get_lib() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_double),     # height_all
                 ctypes.POINTER(ctypes.c_int64),      # height_off
                 ctypes.c_int32,                      # n_threads
-            ]
-            lib.otter_myers_pack_packed.restype = None
-            lib.otter_myers_pack_packed.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8),      # buf
-                ctypes.POINTER(ctypes.c_int64),      # offs
-                ctypes.c_int32, ctypes.c_int32,      # n_pairs, n_words
-                ctypes.c_int32, ctypes.c_int32,      # n_twords, n_threads
-                ctypes.POINTER(ctypes.c_uint32),     # ppack
-                ctypes.POINTER(ctypes.c_uint32),     # tpack
-                ctypes.POINTER(ctypes.c_int32),      # nlen
-                ctypes.POINTER(ctypes.c_int32),      # minit
             ]
             lib.otter_pack_pool_2bit.restype = None
             lib.otter_pack_pool_2bit.argtypes = [
@@ -466,107 +455,6 @@ def anreads_parse(raw: bytes, tid: int, qstart: int, qend: int,
         }
     finally:
         lib.otter_anreads_free(h)
-
-
-def myers_pack_planes(pairs: List[Tuple[str, str]], n_words: int,
-                      text_len: int, pad_to: int = 1024,
-                      n_threads: int = 0):
-    """Pack a Myers pair bucket straight into the Pallas plane layout
-    (kernels/myers_pallas.py), bit-identical to the numpy oracle
-    (pack_for_pallas's pack_myers_bucket + _to_planes composition).
-
-    Returns (peq, tpack, nlen, sel, minit, n_prog) as int32 (..., 128)
-    arrays ready for jnp.asarray.
-    """
-    lib = get_lib()
-    B = len(pairs)
-    Bp = ((B + pad_to - 1) // pad_to) * pad_to
-    n_prog = max(1, Bp // 1024)
-    n_twords = (text_len + 15) // 16
-    if n_threads <= 0:
-        n_threads = min(8, os.cpu_count() or 1)
-    blobs = []
-    offs = np.zeros(2 * B + 1, dtype=np.int64)
-    pos = 0
-    for i, (a, b) in enumerate(pairs):
-        ab = a.encode("latin-1")
-        bb = b.encode("latin-1")
-        blobs.append(ab)
-        blobs.append(bb)
-        offs[2 * i + 1] = pos + len(ab)
-        offs[2 * i + 2] = pos + len(ab) + len(bb)
-        pos += len(ab) + len(bb)
-    buf = np.frombuffer(b"".join(blobs) + b"\x00", dtype=np.uint8)
-    peq = np.zeros((n_prog * 4 * n_words * 8, 128), dtype=np.uint32)
-    tpack = np.zeros((n_prog * n_twords * 8, 128), dtype=np.uint32)
-    nlen = np.zeros((n_prog * 8, 128), dtype=np.int32)
-    sel = np.zeros((n_prog * n_words * 8, 128), dtype=np.uint32)
-    minit = np.zeros((n_prog * 8, 128), dtype=np.int32)
-
-    def pu32(a):
-        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
-
-    def pi32(a):
-        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-
-    lib.otter_myers_pack_planes(
-        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        B, n_words, n_twords, n_threads,
-        pu32(peq), pu32(tpack), pi32(nlen), pu32(sel), pi32(minit))
-    return (peq.view(np.int32), tpack.view(np.int32), nlen,
-            sel.view(np.int32), minit, n_prog)
-
-
-def _pair_blob(pairs: List[Tuple[str, str]]):
-    """Concatenate pair strings into (buf, offs) for the native packers."""
-    B = len(pairs)
-    offs = np.zeros(2 * B + 1, dtype=np.int64)
-    blobs = []
-    pos = 0
-    for i, (a, b) in enumerate(pairs):
-        ab = a.encode("latin-1")
-        bb = b.encode("latin-1")
-        blobs.append(ab)
-        blobs.append(bb)
-        offs[2 * i + 1] = pos + len(ab)
-        offs[2 * i + 2] = pos + len(ab) + len(bb)
-        pos += len(ab) + len(bb)
-    buf = np.frombuffer(b"".join(blobs) + b"\x00", dtype=np.uint8)
-    return buf, offs
-
-
-def myers_pack_packed(pairs: List[Tuple[str, str]], n_words: int,
-                      text_len: int, pad_to: int = 1024,
-                      n_threads: int = 0):
-    """Pack a Myers bucket in the packed-pattern plane layout: the pattern
-    ships 2-bit packed (2*n_words words/pair instead of the 5*n_words of
-    peq+sel); the Pallas kernel expands Peq/sel into VMEM scratch on device.
-
-    Returns (ppack, tpack, nlen, minit, n_prog) as int32 (..., 128) arrays.
-    """
-    lib = get_lib()
-    B = len(pairs)
-    Bp = ((B + pad_to - 1) // pad_to) * pad_to
-    n_prog = max(1, Bp // 1024)
-    n_twords = (text_len + 15) // 16
-    n_pwords = 2 * n_words
-    if n_threads <= 0:
-        n_threads = min(8, os.cpu_count() or 1)
-    buf, offs = _pair_blob(pairs)
-    ppack = np.zeros((n_prog * n_pwords * 8, 128), dtype=np.uint32)
-    tpack = np.zeros((n_prog * n_twords * 8, 128), dtype=np.uint32)
-    nlen = np.zeros((n_prog * 8, 128), dtype=np.int32)
-    minit = np.zeros((n_prog * 8, 128), dtype=np.int32)
-    lib.otter_myers_pack_packed(
-        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        B, n_words, n_twords, n_threads,
-        ppack.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        tpack.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        nlen.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        minit.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
-    return (ppack.view(np.int32), tpack.view(np.int32), nlen, minit, n_prog)
 
 
 def hclust_average_native(condensed: np.ndarray, n: int):

@@ -19,6 +19,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..seqs.model import AnAllele, AnRead
 from ..utils.timestamp import antimestamp
 from .align_np import (
@@ -367,24 +368,17 @@ def consensus_apply_batched(tasks: List["PoaTask"], engine=None) -> None:
         return
     # native C++ PPOA (byte-identical to the python Ppoa oracle) on the
     # device paths; python remains the host-mode parity oracle
-    use_native = (engine is not None
-                  and os.environ.get("OTTER_TPU_NATIVE_POA", "1") == "1")
-    if use_native and tasks:
-        try:
-            from ..native import poa_consensus_batch
-
-            with metrics.phase("consensus_poa"):
-                ndata = [(t.rep_read.seq,
-                          t.resolved_members(cigars[s : s + n]))
-                         for t, s, n in spans]
-                cvals = [t.prune_c() for t, _s, _n in spans]
-                seqs = poa_consensus_batch(ndata, cvals,
-                                           float(np.float32(0.3)))
-            for (task, _s, _n), seq in zip(spans, seqs):
-                task.allele.seq = seq if seq else "N"
-            return
-        except Exception:
-            pass  # native unavailable: python path below
+    if engine is not None and tasks and native.enabled("POA"):
+        with metrics.phase("consensus_poa"):
+            ndata = [(t.rep_read.seq,
+                      t.resolved_members(cigars[s : s + n]))
+                     for t, s, n in spans]
+            cvals = [t.prune_c() for t, _s, _n in spans]
+            seqs = native.poa_consensus_batch(ndata, cvals,
+                                              float(np.float32(0.3)))
+        for (task, _s, _n), seq in zip(spans, seqs):
+            task.allele.seq = seq if seq else "N"
+        return
     for task, start, count in spans:
         task.apply(cigars[start : start + count])
 

@@ -8,10 +8,11 @@ default to 1.0 (:10). Medoid = min row-sum with first-wins ties (:36-50).
 from __future__ import annotations
 
 import functools
-import os
 from typing import Iterable, List
 
 import numpy as np
+
+from .. import native
 
 
 @functools.lru_cache(maxsize=256)
@@ -57,19 +58,13 @@ class DistMatrix:
         if len(idx) <= 2:
             return idx[0]
         ia = np.asarray(idx, dtype=np.int64)
-        if (self.n >= 64 or len(idx) >= 64) \
-                and os.environ.get("OTTER_TPU_NATIVE_MEDOID", "1") == "1":
+        if (self.n >= 64 or len(idx) >= 64) and native.enabled("MEDOID"):
             # condensed-space C++ row sums (exact accumulation order, see
             # otter_medoid_sums): no (n, n) square is materialized — the
             # to_square below dominated the 1001-allele cohort medoid
             # remap. argmin stays numpy (NaN propagation semantics).
-            try:
-                from ..native import medoid_sums_native
-
-                sums = medoid_sums_native(self.values, self.n, ia)
-                return idx[int(np.argmin(sums))]
-            except Exception:
-                pass
+            sums = native.medoid_sums_native(self.values, self.n, ia)
+            return idx[int(np.argmin(sums))]
         sub = self.to_square()[np.ix_(ia, ia)]  # 0.0 diagonal
         # cumsum is a sequential left-to-right accumulation per row — the
         # exact f64 addition order of the scalar j-loop (starting from an

@@ -26,6 +26,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .. import native
+
 
 def nn_chain_average(n: int, condensed: np.ndarray
                      ) -> List[Tuple[int, int, float]]:
@@ -252,15 +254,8 @@ def cutree_k(n: int, merge: np.ndarray, nclust: int) -> np.ndarray:
     labels = np.zeros(n, dtype=np.int64)
     if nclust > n or nclust < 2:
         return labels
-    import os
-
-    if (os.environ.get("OTTER_TPU_NATIVE_HCLUST", "1") == "1"):
-        try:
-            from ..native import cutree_k_native
-
-            return cutree_k_native(n, merge, nclust)
-        except Exception:
-            pass
+    if native.enabled("HCLUST"):
+        return native.cutree_k_native(n, merge, nclust)
     last_merge = np.zeros(n, dtype=np.int64)
     for k in range(1, n - nclust + 1):
         m1 = int(merge[k - 1, 0])

@@ -2,10 +2,11 @@
 
 from __future__ import annotations
 
-import os
 import sys
 from typing import Dict, List, Tuple
 
+from .. import native
+from ..native import _ANREAD_AUX_ABSENT, _ANREAD_RQ_ABSENT
 from ..config import OtterOpts
 from ..io.bam import BamReader, BamRecord, FLAG_SECONDARY, FLAG_SUPPLEMENTARY
 from ..io.bed import BED
@@ -36,10 +37,9 @@ def parse_anreads(params: OtterOpts, bed: BED, bam: BamReader) -> List[AnRead]:
     Device pipelines route through the native C++ extractor
     (otter_native.cpp::otter_anreads_parse — same breakpoints/filters,
     nibble expansion only for the extracted window); host mode keeps this
-    python oracle. OTTER_TPU_NATIVE_ANREADS=0 disables the native path.
+    python oracle. OTTER_TPU_NATIVE_ANREADS=0 selects the oracle.
     """
-    if (params.device != "host"
-            and os.environ.get("OTTER_TPU_NATIVE_ANREADS", "1") == "1"):
+    if params.device != "host" and native.enabled("ANREADS"):
         got = _parse_anreads_native(params, bed, bam)
         if got is not None:
             return got
@@ -62,16 +62,9 @@ def parse_anreads(params: OtterOpts, bed: BED, bam: BamReader) -> List[AnRead]:
 
 def _parse_anreads_native(params: OtterOpts, bed: BED,
                           bam: BamReader) -> "List[AnRead] | None":
-    """Native extraction path; None -> caller falls back to the oracle."""
-    try:
-        from ..native import _ANREAD_AUX_ABSENT, _ANREAD_RQ_ABSENT, \
-            anreads_parse
-    except Exception:
-        return None
-    try:
-        got = bam.fetch_raw(bed.chr, bed.start, bed.end)
-    except Exception:
-        return None
+    """Native extraction path; None when the BAM has no index, where the
+    caller reads the region with fetch()."""
+    got = bam.fetch_raw(bed.chr, bed.start, bed.end)
     if got is None:
         if bam.tid(bed.chr) < 0:
             # fetch() prints this warning and yields nothing; replicate
@@ -81,9 +74,9 @@ def _parse_anreads_native(params: OtterOpts, bed: BED,
             return []
         return None
     tid, raw = got
-    d = anreads_parse(raw, tid, bed.start, bed.end, bed.start, bed.end,
-                      params.mapq, params.nonprimary,
-                      params.omitnonspanning, params.read_quality)
+    d = native.anreads_parse(raw, tid, bed.start, bed.end, bed.start,
+                             bed.end, params.mapq, params.nonprimary,
+                             params.omitnonspanning, params.read_quality)
     out: List[AnRead] = []
     no, so = d["name_off"], d["seq_off"]
     for i in range(d["n"]):
@@ -156,9 +149,8 @@ def parse_analleles(params: OtterOpts, bam: BamReader, bed: BED,
     Device pipelines route through the native C++ allele feeder
     (otter_native.cpp::otter_analleles_parse — same ta/RG/tag semantics in
     fetch order, no per-record python aux walk); host mode keeps this
-    python oracle. OTTER_TPU_NATIVE_ANALLELES=0 disables."""
-    if (params.device != "host"
-            and os.environ.get("OTTER_TPU_NATIVE_ANALLELES", "1") == "1"):
+    python oracle. OTTER_TPU_NATIVE_ANALLELES=0 selects the oracle."""
+    if params.device != "host" and native.enabled("ANALLELES"):
         got = _parse_analleles_native(bam, bed, sample2index)
         if got is not None:
             return got
@@ -172,15 +164,9 @@ def parse_analleles(params: OtterOpts, bam: BamReader, bed: BED,
 
 def _parse_analleles_native(bam: BamReader, bed: BED,
                             sample2index: Dict[str, int]):
-    """Native allele-feeder path; None -> caller falls back to the oracle."""
-    try:
-        from ..native import analleles_parse
-    except Exception:
-        return None
-    try:
-        got = bam.fetch_raw(bed.chr, bed.start, bed.end)
-    except Exception:
-        return None
+    """Native allele-feeder path; None when the BAM has no index, where
+    the caller reads the region with fetch()."""
+    got = bam.fetch_raw(bed.chr, bed.start, bed.end)
     if got is None:
         if bam.tid(bed.chr) < 0:
             sys.stderr.write(
@@ -189,8 +175,8 @@ def _parse_analleles_native(bam: BamReader, bed: BED,
             return [], []
         return None
     tid, raw = got
-    seqs, rgs, cols, se = analleles_parse(raw, tid, bed.start, bed.end,
-                                          bed.to_sc_string())
+    seqs, rgs, cols, se = native.analleles_parse(
+        raw, tid, bed.start, bed.end, bed.to_sc_string())
     anallele_block: List[AnAllele] = []
     allele_sample_indeces: List[int] = []
     # bulk-convert the native columns once (numpy-scalar -> python int is

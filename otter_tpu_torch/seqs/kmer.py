@@ -15,6 +15,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import native
+
 _NT2CODE = np.full(256, 4, dtype=np.uint8)
 for _c, _v in (("A", 0), ("a", 0), ("C", 1), ("c", 1),
                ("G", 2), ("g", 2), ("T", 3), ("t", 3)):
@@ -169,26 +171,18 @@ def _batch_vecs_vnorms(counts: np.ndarray):
 
 def _batch_counts(k: int, seqs: List[str], device="cpu") -> np.ndarray:
     """Batch k-mer counts: K10 on ``device`` with OTTER_TPU_KMER_DEVICE=1
-    (the card's kernel, or its plain version on the CPU; a failure
-    raises), else native C++ -> numpy oracle; all bit-identical integer
-    counts in f64."""
+    (the card's kernel, or its plain version on the CPU), else the native
+    C++ counts, or with OTTER_TPU_NATIVE_KMER=0 the numpy oracle; a failure
+    raises. All give bit-identical integer counts in f64."""
     import os
 
     if os.environ.get("OTTER_TPU_KMER_DEVICE", "") == "1":
         return kcounts_device(k, seqs, device)
-    counts = None
     # native C++ counting kernel (bit-identical integer counts in f64);
-    # OTTER_TPU_NATIVE_KMER=0 disables
-    if os.environ.get("OTTER_TPU_NATIVE_KMER", "1") == "1":
-        try:
-            from ..native import kcounts_native
-
-            counts = kcounts_native(k, seqs)
-        except Exception:
-            counts = None
-    if counts is None:
-        counts = seq2kcounts_np(k, seqs)
-    return counts
+    # OTTER_TPU_NATIVE_KMER=0 selects the numpy oracle
+    if native.enabled("KMER"):
+        return native.kcounts_native(k, seqs)
+    return seq2kcounts_np(k, seqs)
 
 
 class LazyKusages:
